@@ -1,0 +1,28 @@
+"""terran_tpu_torch: the PyTorch and CUDA port of terran_tpu.
+
+The same public names as ``terran_tpu`` for the parts ported so far
+(``pose_estimation``, ``Estimation``, ``Keypoint``, ``default_device``),
+running on an NVIDIA card by default. Imports are lazy (PEP 562), so
+``import terran_tpu_torch`` touches neither the checkpoint store nor the
+card.
+"""
+
+__version__ = "0.1.0"
+
+_LAZY = {
+    "default_device": ("terran_tpu_torch.runtime", "default_device"),
+    "pose_estimation": ("terran_tpu_torch.pose", "pose_estimation"),
+    "Estimation": ("terran_tpu_torch.pose", "Estimation"),
+    "Keypoint": ("terran_tpu_torch.pose", "Keypoint"),
+}
+
+__all__ = list(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module_path, attr = _LAZY[name]
+        return getattr(importlib.import_module(module_path), attr)
+    raise AttributeError(f"module 'terran_tpu_torch' has no attribute '{name}'")

@@ -1,0 +1,74 @@
+"""Device and numerics policy.
+
+``default_device`` is the first CUDA card. There is no quiet CPU fallback:
+callers that want the CPU (the tests) say ``device="cpu"``.
+"""
+
+import os
+from dataclasses import dataclass
+
+import torch
+
+
+def default_device():
+    """The default accelerator, ``cuda``; raises when no card is visible."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device=None):
+    """``device`` as a ``torch.device``, ``default_device()`` when None."""
+    return default_device() if device is None else torch.device(device)
+
+
+@dataclass(frozen=True)
+class Policy:
+    """Numerics policy for model execution: ``compute_dtype`` is the dtype
+    the convolutions run in (weights are converted in float32)."""
+
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @staticmethod
+    def from_env():
+        name = os.environ.get("TERRAN_TPU_COMPUTE_DTYPE", "bfloat16")
+        dtype = getattr(torch, name, None)
+        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+            raise ValueError(f"TERRAN_TPU_COMPUTE_DTYPE={name!r} is not a "
+                             "torch floating-point dtype")
+        return Policy(compute_dtype=dtype)
+
+
+_default_policy = None
+
+
+def default_policy():
+    global _default_policy
+    if _default_policy is None:
+        _default_policy = Policy.from_env()
+    return _default_policy
+
+
+def cast_params_for_compute(state_dict, compute_dtype, keep_f32=()):
+    """Store float32 weights in the compute dtype once, at load time.
+
+    ``keep_f32``: name prefixes whose weights stay float32 because their
+    layer computes in float32. Non-float entries pass through.
+    """
+    if compute_dtype == torch.float32:
+        return dict(state_dict)
+    return {
+        name: (
+            value.to(compute_dtype)
+            if value.dtype == torch.float32
+            and not any(name.startswith(k) for k in keep_f32)
+            else value
+        )
+        for name, value in state_dict.items()
+    }
+
+
+# Name prefixes that keep float32 storage per model family.
+PARAMS_KEEP_F32 = {"openpose": ()}

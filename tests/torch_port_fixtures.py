@@ -1,0 +1,18 @@
+"""Shared fixtures for the PyTorch port's CPU parity tests.
+
+Import the fixture into a test module to apply it there (autouse).
+"""
+
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True)
+def single_torch_thread():
+    # With JAX in the same process, torch's multi-threaded CPU kernels have
+    # returned wrong values for one thread's share of the elements on a
+    # first call (torch.sqrt off by ~2**-12 relative); one thread is exact.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
