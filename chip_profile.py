@@ -14,8 +14,10 @@ weights, bf16). Prints:
    stages so each is attributed on its own), plus the host's share
    (copy back and assembly);
 2. a ``torch.profiler`` trace of one full task-API call: the ten kernels
-   with the most device time and the device's busy share of the call's
-   wall time.
+   with the most device time, the device's busy share of the call's wall
+   time, and the fused peak-scan kernels (``csrc/fused_peaks.cu``: scan
+   and merge, two launches per decode) with their launches and device
+   time.
 """
 
 import sys
@@ -126,6 +128,12 @@ def main():
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
+    peaks = [e for e in kernels
+             if "::scan_kernel(" in e.key or "::merge_kernel(" in e.key]
+    print(f"fused peaks kernels in the profiled call ({card}): "
+          f"{sum(e.count for e in peaks)} launches, "
+          f"{sum(e.self_device_time_total for e in peaks) / 1e3:.4f} ms "
+          "device time")
     return 0
 
 

@@ -8,27 +8,35 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, exits nonzero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernel (terran_tpu_torch/csrc/fused_peaks.cu)
-   with nvcc;
-3. hold the kernel against its plain PyTorch version on the card, exact
+2. build the hand-written kernels (terran_tpu_torch/csrc/fused_peaks.cu:
+   the tile scan and the plane merge) with nvcc;
+3. hold the kernels against their plain PyTorch version on the card, exact
    equality of coords, valid, overflow and scores, on random fields,
    off-grid gaussian bumps, a height and width off the kernel's tile grid,
-   exact-tie plateaus, batch dims and the model's own heatmaps at the main
-   path's shape; time both with CUDA events;
+   exact-tie plateaus (one of them a whole 23x40 plane, every interior
+   pixel a peak, at K=128 and K=4096), batch dims, the model's own
+   heatmaps at the main path's shape at K = 0, 1, 32, 37 and 128, the
+   strided [..., :18] view of the model's 19 channels, a 46x80 field
+   (short side 368) at K=512 and a 132x264 field of 1089 tiles; hold the
+   merge kernel alone against ``merge_candidates`` on the scan kernel's
+   output; time the call with CUDA events at K=32 and K=128;
 4. the main path: the pose task API (``Estimation``) on 8 seeded 1080p
    frames at the default short side 184, full OpenPose with random
-   reference-format weights, bf16; the kernel's launch count must rise;
+   reference-format weights, bf16; the kernels' launch count must rise;
    then ``max_peaks=4`` must escalate;
 5. float32 with TF32 off: the fused path and the materialised path
    (``fused_peaks='off'``) give equal keypoints, and the card's forward
    agrees with the CPU's on a small input;
-6. a JSON line describing the kernel, then the result line.
+6. ``torch.profiler``: the CUDA kernels of one call (at most 2), and the
+   kernels' device time at K=32 and K=128;
+7. a JSON line describing the kernels, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +48,7 @@ SEED = 0
 BATCH = 8
 FRAME = (1080, 1920)
 TIMED_CALLS = 3
+PLATEAU_PEAKS = (23 * 8 - 2) * (40 * 8 - 2)  # interior of a 184x320 field
 # H100 SXM published peaks: float32 outside the tensor cores, HBM3.
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -102,6 +111,34 @@ def assert_same(got, expected, label):
                                  f"in {name}")
 
 
+def profile_call(fn, calls):
+    """(CUDA kernels per call, device ms per call, {kernel name: device ms
+    per call}) of ``calls`` calls of ``fn`` under torch.profiler; every
+    device activity counts as a kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    # "(anonymous namespace)::scan_kernel(float const*, ...)" -> scan_kernel
+    by_name = {}
+    for e in events:
+        name = re.search(r"(\w+)\(", e.key)
+        name = name.group(1) if name else e.key
+        by_name[name] = (by_name.get(name, 0.0)
+                         + e.self_device_time_total / 1e3 / calls)
+    return (sum(e.count for e in events) / calls, sum(by_name.values()),
+            by_name)
+
+
 def kernel_bound_ms(m, h, w, k, factor=8):
     """Least time for the fused peak scan of m planes of h x w: each input
     read once and each output written once over HBM, or the FIR and
@@ -144,7 +181,7 @@ def main():
     # 2. Build.
     start = time.perf_counter()
     fp._library()
-    log(f"build: fused_peaks.cu in {time.perf_counter() - start:.2f} s "
+    log(f"build: fused_peaks.cu (scan + merge kernels) in {time.perf_counter() - start:.2f} s "
         f"(nvcc {cuda_build.build_seconds.get('fused_peaks.cu', 0.0):.2f} "
         f"s; 0 = cached)")
 
@@ -161,13 +198,17 @@ def main():
         _, heat = model_est.model(
             normalize_images(resized).to(model_est.model.compute_dtype)
         )
-    main_heat = heat.float()[..., :18].contiguous()
+    heat19 = heat.float()
+    strided = heat19[..., :18]  # the pose path's own view, not a copy
+    main_heat = strided.contiguous()
     n, h, w, parts = main_heat.shape
     k_main = model_est.max_peaks
     log(f"main-path heatmaps: {tuple(main_heat.shape)} -> "
         f"{n * parts} planes of {h}x{w}, K={k_main}")
 
     plateau = np.full((12, 14, 2), 0.9, np.float32)
+    # 0.5 and the dyadic taps upsample exactly: one plateau.
+    whole_plane = np.full((1, h, w, 1), 0.5, np.float32)
     piece = np.zeros((16, 26, 1), np.float32)
     piece[4, 10:14, 0] = 0.9
     cases = [
@@ -179,32 +220,72 @@ def main():
         ("batch dims", rng.normal(scale=0.2, size=(2, 2, 16, 26, 3)), 8),
         ("model heatmaps", main_heat, k_main),
         ("model heatmaps K=128", main_heat, 128),
+        ("model heatmaps K=1", main_heat, 1),
+        ("model heatmaps K=37", main_heat, 37),
+        ("whole-plane plateau K=128", whole_plane, 128),
+        # K above what the merge keeps in shared memory.
+        ("whole-plane plateau K=4096", whole_plane, 4096),
+        ("strided [..., :18] of 19 channels", strided, k_main),
+        ("46x80 field K=512", rng.normal(scale=0.2, size=(2, 46, 80, 18)),
+         512),
+        ("model heatmaps K=0", main_heat, 0),
+        # 33x33 = 1089 tiles: more tiles than the merge stages.
+        ("132x264 field K=8", rng.normal(scale=0.2, size=(1, 132, 264, 1)),
+         8),
     ]
+    by_label = {label: heat_case for label, heat_case, _ in cases}
     max_abs_err = 0.0
     for label, heat_case, k in cases:
         t = torch.as_tensor(heat_case, dtype=torch.float32, device=dev)
+        if heat_case is strided and (t.data_ptr() != heat19.data_ptr()
+                                     or t.is_contiguous()):
+            raise AssertionError("the strided case must pass the view")
         got = fp.find_peaks_fused(t, 0.1, k)
         expected = fp.find_peaks_fused_plain(t, 0.1, k)
         torch.cuda.synchronize()
         assert_same(got, expected, label)
-        max_abs_err = max(max_abs_err,
-                          float((got[1] - expected[1]).abs().max()))
+        if got[1].numel():
+            max_abs_err = max(max_abs_err,
+                              float((got[1] - expected[1]).abs().max()))
         log(f"kernel == plain: {label} {tuple(t.shape)} K={k}: "
             f"{int(got[2].sum())} peaks kept, "
             f"{int(got[3].sum())} parts overflowed")
 
-    ms = time_ms(lambda: fp.find_peaks_fused(main_heat, 0.1, k_main))
-    planes = main_heat.movedim(-1, -3).reshape(-1, h, w).contiguous()
-    kernel_ms = time_ms(
-        lambda: fp.fused_peak_candidates(planes, 0.1, k_main)
-    )
+    # The merge kernel alone against its plain version, on the scan
+    # kernel's own output.
+    for label, heat_case, k in (("model heatmaps", strided, k_main),
+                                ("model heatmaps", strided, 128),
+                                ("whole-plane plateau", whole_plane, 128),
+                                ("46x80 field", by_label["46x80 field K=512"],
+                                 512),
+                                ("132x264 field",
+                                 by_label["132x264 field K=8"], 8)):
+        t = torch.as_tensor(heat_case, dtype=torch.float32, device=dev)
+        keys, counts = fp.scan_tiles(t, 0.1, k)
+        got = fp.merge_tiles(keys, counts, t.shape[-2] * 8)
+        expected = fp.merge_candidates(*fp.decode_tile_keys(keys, counts),
+                                       counts, k, t.shape[-2] * 8)
+        torch.cuda.synchronize()
+        assert_same(got, expected, f"merge kernel, {label} K={k}")
+        total = counts.sum(dim=1)
+        if heat_case is whole_plane and int(total[0]) != PLATEAU_PEAKS:
+            raise AssertionError(f"plateau: {int(total[0])} peaks, "
+                                 f"expected {PLATEAU_PEAKS}")
+        log(f"merge kernel == merge_candidates: {label} K={k}: "
+            f"{int(total.max())} peaks in the busiest plane, "
+            f"{int(counts.max())} in the busiest tile")
+
+    # Times at K=32 and K=128 on the pose path's own strided view.
+    ms = {k: time_ms(lambda k=k: fp.find_peaks_fused(strided, 0.1, k))
+          for k in (k_main, 128)}
     plain_ms = time_ms(
         lambda: fp.find_peaks_fused_plain(main_heat, 0.1, k_main)
     )
     bound_ms, bound_by = kernel_bound_ms(n * parts, h, w, k_main)
     log(f"timing at the main-path shape ({card}): find_peaks_fused "
-        f"{ms:.4f} ms (kernel alone {kernel_ms:.4f} ms), plain version "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        f"{ms[k_main]:.4f} ms at K={k_main}, {ms[128]:.4f} ms at K=128, "
+        f"plain version {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
 
     # 4. The main path, bf16, through the task API.
     task = Estimation(params=state_dict)
@@ -223,8 +304,8 @@ def main():
         torch.cuda.synchronize()
         times.append(time.perf_counter() - start)
     launches = fp.find_peaks_fused.launches
-    if launches < 1:
-        raise AssertionError("the main path did not launch the kernel")
+    if launches < 2:
+        raise AssertionError("the main path did not launch the kernels")
     batch_ms = 1e3 * sorted(times)[len(times) // 2]
     escalations = task.model.escalation_count
     people = [len(p) for p in out]
@@ -294,7 +375,26 @@ def main():
                                  f"error {err}")
         log(f"card vs CPU float32 forward: {name} max abs error {err:.2e}")
 
-    # 6. Results.
+    # 6. The profiler, last: it stays attached to the process and slows
+    #    later launches. One call's CUDA kernels, then the kernels' device
+    #    time a call at K=32 and K=128.
+    kernels_per_call, _, names = profile_call(
+        lambda: fp.find_peaks_fused(strided, 0.1, k_main), 1)
+    log(f"CUDA kernels in one find_peaks_fused call: {kernels_per_call:g} "
+        f"({', '.join(sorted(names))})")
+    if not 1 <= kernels_per_call <= 2:
+        raise AssertionError(f"{kernels_per_call} CUDA kernels in one call, "
+                             "expected the scan and the merge")
+    kernel_ms = {}
+    for k in (k_main, 128):
+        _, kernel_ms[k], names = profile_call(
+            lambda k=k: fp.find_peaks_fused(strided, 0.1, k), 20)
+        log(f"kernels at K={k} ({card}): {kernel_ms[k]:.4f} ms a call ("
+            + ", ".join(f"{name} {t:.4f} ms"
+                        for name, t in sorted(names.items()))
+            + ")")
+
+    # 7. Results.
     log(json.dumps({"kernels": [{
         "name": "fused_peaks",
         "route": "cuda",
@@ -303,8 +403,11 @@ def main():
         "launches": launches,
         "max_abs_err": max_abs_err,
         "exact": max_abs_err == 0.0,
-        "ms": ms,
-        "kernel_ms": kernel_ms,
+        "ms": ms[k_main],
+        "kernel_ms": kernel_ms[k_main],
+        "ms_k128": ms[128],
+        "kernel_ms_k128": kernel_ms[128],
+        "kernels_per_call": kernels_per_call,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,

@@ -124,8 +124,8 @@ def test_matches_pallas_interpret_tiny(rng):
 
 
 def test_merge_candidates_total_order():
-    """The tile merge (the kernel's host half) keeps (score desc, index
-    asc) and re-orders row-major; ties go to the smaller index whatever
+    """The tile merge (the merge kernel's plain version) keeps (score
+    desc, index asc) and re-orders row-major; ties go to the smaller index whatever
     tile they come from."""
     inf = float("inf")
     big = 2 ** 31 - 1
