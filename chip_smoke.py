@@ -8,9 +8,10 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, exits nonzero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the hand-written kernels (terran_tpu_torch/csrc/fused_peaks.cu:
-   the tile scan and the plane merge) with nvcc;
-3. hold the kernels against their plain PyTorch version on the card, exact
+2. build the hand-written kernels with nvcc, one build per source, in
+   parallel: terran_tpu_torch/csrc/fused_peaks.cu (the tile scan and the
+   plane merge) and terran_tpu_torch/csrc/nms.cu (greedy suppression);
+3. hold the peak kernels against their plain PyTorch version on the card, exact
    equality of coords, valid, overflow and scores, on random fields,
    off-grid gaussian bumps, a height and width off the kernel's tile grid,
    exact-tie plateaus (one of them a whole 23x40 plane, every interior
@@ -20,15 +21,28 @@ Phases (any failure raises, exits nonzero and prints no result line):
    (short side 368) at K=512 and a 132x264 field of 1089 tiles; hold the
    merge kernel alone against ``merge_candidates`` on the scan kernel's
    output; time the call with CUDA events at K=32 and K=128;
-4. the main path: the pose task API (``Estimation``) on 8 seeded 1080p
+   then hold the NMS kernel against its plain version: all five outputs
+   of ``nms_fixed`` equal (NaNs counted equal) on random boxes (N=8,
+   A=12,740 anchors, K=256), the model's own decoded boxes at the main
+   shape (K = 256, 512, 1024), K = 2048 and 4096, a tie plateau of
+   identical boxes, inf and NaN boxes, no candidate above the threshold,
+   top_k above A and N=1; time it with CUDA events at N=8, K=256 and 1024;
+4. the pose main path: the pose task API (``Estimation``) on 8 seeded 1080p
    frames at the default short side 184, full OpenPose with random
-   reference-format weights, bf16; the kernels' launch count must rise;
-   then ``max_peaks=4`` must escalate;
+   reference-format weights, bf16; the peak kernels' launch count must
+   rise; then ``max_peaks=4`` must escalate;
+   the detection main path: ``Detection`` on the same frames at the
+   default short side 416, full RetinaFace (mnet-0.25) with random
+   weights, bf16; the NMS kernel's launch count must rise;
+   the recognition main path: ``Recognition`` on the same frames, 8 faces
+   a frame with finite landmarks, full FaceResNet100, bf16;
 5. float32 with TF32 off: the fused path and the materialised path
    (``fused_peaks='off'``) give equal keypoints, and the card's forward
-   agrees with the CPU's on a small input;
-6. ``torch.profiler``: the CUDA kernels of one call (at most 2), and the
-   kernels' device time at K=32 and K=128;
+   agrees with the CPU's on a small input; the same for RetinaFace and
+   ArcFace, and the detect step's keep masks on the card equal the CPU's;
+6. ``torch.profiler``: the CUDA kernels of one peak-scan call (at most 2),
+   the kernels' device time at K=32 and K=128, and the CUDA kernels of
+   one NMS suppression call (1) with its device time;
 7. a JSON line describing the kernels, then the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -52,6 +66,13 @@ PLATEAU_PEAKS = (23 * 8 - 2) * (40 * 8 - 2)  # interior of a 184x320 field
 # H100 SXM published peaks: float32 outside the tensor cores, HBM3.
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+DETECT_SHAPE = (416, 739)  # 1080p at the default short side 416
+ANCHORS = 12740            # RetinaFace anchors at 416x739
+FACES_PER_FRAME = 8
+# float32 operations of one IoU test in csrc/nms.cu: 2 max, 2 min, 2
+# subtractions, 2 clamps, 1 product, 2 additions/subtractions, 1 division,
+# 1 compare.
+IOU_OPS = 13
 
 
 def log(*args):
@@ -153,6 +174,369 @@ def kernel_bound_ms(m, h, w, k, factor=8):
                                        else "bytes")
 
 
+def nms_plain(*args, **kwargs):
+    """``nms_fixed`` with the suppression's plain version, on any device."""
+    from terran_tpu_torch.ops import nms
+
+    kernel = nms.suppress
+    nms.suppress = nms.suppress_plain
+    try:
+        return nms.nms_fixed(*args, **kwargs)
+    finally:
+        nms.suppress = kernel
+
+
+def assert_same_nms(got, expected, label):
+    """All five outputs of ``nms_fixed`` equal: dtype, shape and values,
+    NaNs counted equal."""
+    import torch
+
+    names = ("boxes", "scores", "keep", "order", "overflow")
+    for name, g, e in zip(names, got, expected):
+        same = g.shape == e.shape and g.dtype == e.dtype
+        if same and g.is_floating_point():
+            same = bool(((g == e) | (torch.isnan(g) & torch.isnan(e))).all())
+        elif same:
+            same = torch.equal(g, e)
+        if not same:
+            raise AssertionError(f"NMS {label}: kernel and plain version "
+                                 f"differ in {name}")
+
+
+def random_boxes(rng, n, a, height, width):
+    """(n, a, 4) boxes with corners on a height x width canvas and sides
+    of 5-120 px, and (n, a) uniform scores."""
+    import numpy as np
+
+    xy = rng.uniform(0, 1, (n, a, 2)) * (width, height)
+    wh = rng.uniform(5, 120, (n, a, 2))
+    boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
+    return boxes, rng.uniform(0, 1, (n, a)).astype(np.float32)
+
+
+def nms_tests(top_boxes, valid, keep, iou_threshold):
+    """(N,) IoU tests that greedy NMS needs on these inputs: each kept
+    candidate i against each later valid j that no survivor before i has
+    suppressed. A valid j is tested by every survivor up to the first one
+    that overlaps it, or by every survivor before it if none does."""
+    import torch
+
+    from terran_tpu_torch.ops.nms import iou_matrix
+
+    n, k = keep.shape
+    idx = torch.arange(k, device=keep.device)
+    hits = (keep[:, :, None] & (idx[:, None] < idx[None, :])
+            & (iou_matrix(top_boxes, top_boxes) > iou_threshold))
+    # The last survivor to test j: its first suppressor, else j - 1.
+    last = torch.where(hits, idx[None, :, None], k).amin(dim=1)
+    last = torch.minimum(last, idx - 1)
+    # kept_upto[:, m + 1] = survivors at or before m.
+    kept_upto = torch.nn.functional.pad(keep.long().cumsum(dim=1), (1, 0))
+    return (kept_upto.gather(1, last + 1) * valid).sum(dim=1)
+
+
+def nms_bound_ms(top_boxes, valid, keep, iou_threshold):
+    """Least time of the suppression on these inputs, the larger of: boxes
+    (16 bytes) and valid flags (1) read once and the keep mask (1) written
+    once over HBM; the areas and the IoU tests of :func:`nms_tests` over
+    the float32 rate. Returns (ms, "bytes" or "operations", chain): chain
+    is the most survivors in one image, the number of dependent steps,
+    each ending in a barrier, that the kernel's one block walks; PERF.md
+    names that chain as what bounds this kernel, not the two rates."""
+    n, k = keep.shape
+    tests = float(nms_tests(top_boxes, valid, keep, iou_threshold).sum())
+    ops = tests * IOU_OPS + 3 * n * k
+    nbytes = n * k * (16 + 1 + 1)
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            int(keep.sum(dim=1).max()))
+
+
+def nms_phase(detector, frames, rng, dev, card):
+    """The NMS kernel against its plain version on the card, and its
+    times; returns the kernel's entry fields, the largest difference of
+    any output from its plain version, and the model's decoded (boxes,
+    scores)."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.models.retinaface import anchor_cell_meta
+    from terran_tpu_torch.ops import nms
+
+    h, w = DETECT_SHAPE
+    boxes, scores = nms_phase_boxes(detector, frames, dev)
+    if scores.shape[1] != ANCHORS:
+        raise AssertionError(f"{scores.shape[1]} anchors, expected {ANCHORS}")
+    cell_x = torch.from_numpy(anchor_cell_meta(h, w)[0]).to(dev)
+    if int(cell_x.max()) != -(-w // 8) - 1:
+        raise AssertionError("anchor cells do not cover the frame")
+
+    def as_dev(*arrays):
+        return [torch.as_tensor(a, device=dev) for a in arrays]
+
+    rand_boxes, rand_scores = as_dev(*random_boxes(rng, 8, ANCHORS, h, w))
+    big_boxes, big_scores = as_dev(*random_boxes(rng, 2, ANCHORS, h, w))
+    plateau = torch.tensor([[[40.0, 40.0, 120.0, 140.0]]],
+                           device=dev).expand(2, 600, 4).contiguous()
+    nonfinite, nf_scores = random_boxes(rng, 4, 3000, h, w)
+    nonfinite[:, ::7, 2] = np.inf
+    nonfinite[:, 1::7, 0] = -np.inf
+    nonfinite[:, 1::7, 2] = np.inf
+    nonfinite[:, 2::7, 1] = np.nan
+    nonfinite[:, 3::7] = (-np.inf, -np.inf, np.inf, np.inf)
+    nonfinite, nf_scores = as_dev(nonfinite, nf_scores)
+    small_boxes, small_scores = as_dev(*random_boxes(rng, 3, 100, h, w))
+    cases = [
+        ("random boxes N=8", rand_boxes, rand_scores, 0.5, 256),
+        ("model boxes K=256", boxes, scores, 0.5, 256),
+        ("model boxes K=512", boxes, scores, 0.5, 512),
+        ("model boxes K=1024", boxes, scores, 0.5, 1024),
+        ("random boxes N=2 K=2048", big_boxes, big_scores, 0.1, 2048),
+        ("random boxes N=2 K=4096", big_boxes, big_scores, 0.1, 4096),
+        ("tie plateau of identical boxes", plateau,
+         torch.full((2, 600), 0.75, device=dev), 0.5, 256),
+        ("inf and NaN boxes", nonfinite, nf_scores, 0.2, 1024),
+        ("no candidate above threshold", rand_boxes, rand_scores * 0.4, 0.5,
+         256),
+        ("top_k above A", small_boxes, small_scores, 0.1, 256),
+        ("N=1", boxes[:1], scores[:1], 0.5, 256),
+    ]
+    max_abs_err = 0.0
+    for label, b, sc, thr, k in cases:
+        got = nms.nms_fixed(b, sc, 0.4, score_threshold=thr, top_k=k)
+        expected = nms_plain(b, sc, 0.4, score_threshold=thr, top_k=k)
+        torch.cuda.synchronize()
+        for g, e in zip(got, expected):
+            diff = (g.double() - e.double()).abs()
+            # Equal infinities and NaNs differ by NaN; assert_same_nms
+            # holds them equal.
+            diff = diff[~torch.isnan(diff)]
+            if diff.numel():
+                max_abs_err = max(max_abs_err, float(diff.max()))
+        assert_same_nms(got, expected, label)
+        keep = got[2]
+        if label.startswith("tie") and keep.sum(dim=1).tolist() != [1, 1]:
+            raise AssertionError("tie plateau: expected one survivor each")
+        if label.startswith("no candidate") and keep.any():
+            raise AssertionError("a candidate survived below the threshold")
+        log(f"NMS kernel == plain: {label} {tuple(b.shape)} K={k}: "
+            f"{int(keep.sum())} kept, {int(got[4].sum())} overflowed")
+
+    # Times at N=8 on the model's own pre-selected boxes.
+    fields = {}
+    for k in (256, 1024):
+        top_boxes, top_scores, keep, _, _ = nms.nms_fixed(
+            boxes, scores, 0.4, score_threshold=0.5, top_k=k)
+        valid = torch.isfinite(top_scores)
+        ms = time_ms(lambda: nms.suppress(top_boxes, valid, 0.4))
+        plain_ms = time_ms(lambda: nms.suppress_plain(top_boxes, valid, 0.4),
+                           iters=3, warm=1)
+        call_ms = time_ms(lambda: nms.nms_fixed(
+            boxes, scores, 0.4, score_threshold=0.5, top_k=k))
+        bound_ms, bound_by, chain = nms_bound_ms(top_boxes, valid, keep, 0.4)
+        log(f"NMS timing, N=8, K={k} ({card}): suppress (kernel call) "
+            f"{ms:.4f} ms, plain version {plain_ms:.4f} ms, whole nms_fixed "
+            f"{call_ms:.4f} ms; {int(keep.sum())} kept; bound "
+            f"{bound_ms:.6f} ms ({bound_by}); chain of {chain} dependent "
+            f"steps in the busiest block ({ms * 1e3 / max(chain, 1):.2f} us a step)")
+        fields[k] = {"ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "chain_steps": chain, "kept": int(keep.sum())}
+    return fields, max_abs_err, (boxes, scores)
+
+
+def nms_phase_boxes(detector, frames, dev):
+    """(boxes (N, A, 4), scores (N, A)) of the detector's decode at the
+    main shape, float32 on the card."""
+    import torch
+
+    from terran_tpu_torch.models.retinaface import (
+        anchors_for_shape, decode_outputs,
+    )
+
+    resized, _ = detector_resize(detector, frames)
+    with torch.inference_mode():
+        outputs = detector.model(resized.to(detector.model.compute_dtype))
+        anchors = torch.from_numpy(anchors_for_shape(*DETECT_SHAPE)).to(dev)
+        scores, boxes, _ = decode_outputs(outputs, anchors)
+    return boxes, scores
+
+
+def detector_resize(detector, frames):
+    """The detection task's resize of ``frames`` on the detector's card."""
+    from terran_tpu_torch.utils.batching import resize_factory
+
+    resize_in, _ = resize_factory(short_side=DETECT_SHAPE[0],
+                                  device=detector.device)
+    return resize_in(frames)
+
+
+def timed_calls(fn):
+    """(last result, warm-call seconds, median ms of TIMED_CALLS calls)."""
+    import torch
+
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - start
+    times = []
+    for _ in range(TIMED_CALLS):
+        start = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    return out, warm_s, 1e3 * sorted(times)[len(times) // 2]
+
+
+def synthetic_faces(rng, frames):
+    """FACES_PER_FRAME faces for each of ``frames`` 1080p frames:
+    ARCFACE_TEMPLATE scaled x2 at seeded spots inside the frame, as
+    detections with int32 landmarks."""
+    import numpy as np
+
+    from terran_tpu_torch.ops.warp import ARCFACE_TEMPLATE
+
+    faces = []
+    for _ in range(frames):
+        frame_faces = []
+        for _ in range(FACES_PER_FRAME):
+            x0 = rng.uniform(0, FRAME[1] - 224)
+            y0 = rng.uniform(0, FRAME[0] - 224)
+            lmk = ARCFACE_TEMPLATE * 2.0 + (x0, y0)
+            frame_faces.append({
+                "bbox": np.array([x0, y0, x0 + 224, y0 + 224], np.int32),
+                "landmarks": np.around(lmk).astype(np.int32),
+                "score": np.float32(0.99),
+            })
+        faces.append(frame_faces)
+    return faces
+
+
+def detection_phase(rf_params, frames, card, device=None):
+    """The detection task API on ``frames``, bf16: times, escalations,
+    faces and the result contract. Returns the NMS kernel's launches."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.face import Detection
+    from terran_tpu_torch.ops import nms
+
+    detection = Detection(params=rf_params, device=device)
+    if detection.model.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the detection path must run bf16")
+    nms.suppress.launches = 0
+    faces, warm_s, det_ms = timed_calls(lambda: detection(frames))
+    nms_launches = nms.suppress.launches
+    if detection.device.type == "cuda" and nms_launches < 1 + TIMED_CALLS:
+        raise AssertionError("the detection path did not launch the NMS "
+                             "kernel")
+    det_escalations = detection.model.escalation_count
+    log(f"detection path ({card}): batch {len(frames)} x "
+        f"{frames.shape[1]}x{frames.shape[2]}, short side "
+        f"{DETECT_SHAPE[0]}, bf16: warm call {warm_s:.3f} s, "
+        f"{det_ms:.2f} ms/batch median of {TIMED_CALLS} "
+        f"({len(frames) * 1e3 / det_ms:.2f} frames/s); NMS kernel launches "
+        f"{nms_launches}; escalations {det_escalations} over "
+        f"{1 + TIMED_CALLS} calls; faces per frame {[len(f) for f in faces]}")
+    assert len(faces) == len(frames)
+    for frame_faces in faces:
+        scores = [face["score"] for face in frame_faces]
+        if scores != sorted(scores, reverse=True):
+            raise AssertionError("detection scores are not descending")
+        for face in frame_faces:
+            assert face["bbox"].shape == (4,)
+            assert face["bbox"].dtype == np.int32
+            assert face["landmarks"].shape == (5, 2)
+            assert face["landmarks"].dtype == np.int32
+            assert np.isfinite(face["score"])
+    return nms_launches
+
+
+def recognition_phase(arc_params, frames, rng, card, device=None):
+    """The recognition task API on ``frames`` with FACES_PER_FRAME
+    synthetic faces a frame, bf16: time and the embeddings' contract."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.face import Recognition
+
+    recognition = Recognition(params=arc_params, device=device)
+    if recognition.model.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the recognition path must run bf16")
+    face_lists = synthetic_faces(rng, len(frames))
+    feats, warm_s, rec_ms = timed_calls(
+        lambda: recognition(list(frames), face_lists))
+    log(f"recognition path ({card}): {len(frames)} frames x "
+        f"{FACES_PER_FRAME} faces, full FaceResNet100, bf16: warm call "
+        f"{warm_s:.3f} s, {rec_ms:.2f} ms/batch median of {TIMED_CALLS} "
+        f"({len(frames) * FACES_PER_FRAME * 1e3 / rec_ms:.1f} faces/s)")
+    assert len(feats) == len(frames)
+    for frame_feats in feats:
+        assert frame_feats.shape == (FACES_PER_FRAME, 512)
+        assert frame_feats.dtype == np.float32
+        norms = np.linalg.norm(frame_feats, axis=1)
+        if not np.allclose(norms, 1.0, rtol=1e-5):
+            raise AssertionError(f"embeddings are not unit vectors: {norms}")
+
+
+def face_float32_phase(rf_params, arc_params, rng, dev):
+    """float32, TF32 off: RetinaFace and ArcFace forwards on the card
+    against the CPU's on small inputs, and the detect step's keep masks
+    equal."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.face.detection import RetinaFaceDetector
+    from terran_tpu_torch.face.recognition import ArcFaceRecognizer
+    from terran_tpu_torch.models.retinaface import unpack_detections
+
+    det = {d: RetinaFaceDetector(params=rf_params, device=d, top_k=1024,
+                                 compute_dtype=torch.float32)
+           for d in (dev, "cpu")}
+    images = torch.as_tensor(rng.integers(0, 256, (2, 96, 128, 3)),
+                             dtype=torch.uint8)
+    with torch.inference_mode():
+        ref = det["cpu"].model(images.float())
+        got = det[dev].model(images.to(dev).float())
+    # Heads reach ~10 with random weights; cuDNN and the CPU sum in other
+    # orders: 2e-5 of the largest output.
+    worst = 0.0
+    for stride in (8, 16, 32):
+        for name, g, r in zip(("cls", "bbox", "landmark"), got[stride],
+                              ref[stride]):
+            err = float((g.cpu() - r).abs().max())
+            scale = max(1.0, float(r.abs().max()))
+            if not err <= 2e-5 * scale:
+                raise AssertionError(f"card vs CPU RetinaFace {name} "
+                                     f"stride {stride}: max abs error {err}")
+            worst = max(worst, err / scale)
+    log(f"card vs CPU float32 RetinaFace heads: max abs error "
+        f"{worst:.2e} of the largest output")
+    packed = [unpack_detections(det[d]._detect_fn(96, 128)(
+        images.to(det[d].device), 0.5).cpu().numpy()) for d in (dev, "cpu")]
+    if not np.array_equal(packed[0][3], packed[1][3]):
+        raise AssertionError("card vs CPU detect step: keep masks differ")
+    log(f"card vs CPU float32 detect step: keep masks equal "
+        f"({int(packed[0][3].sum())} kept of 2 x 1024)")
+
+    rec = {d: ArcFaceRecognizer(params=arc_params, device=d,
+                                compute_dtype=torch.float32)
+           for d in (dev, "cpu")}
+    crops = torch.as_tensor(rng.integers(0, 256, (2, 112, 112, 3)),
+                            dtype=torch.float32)
+    with torch.inference_mode():
+        ref = rec["cpu"].model(crops)
+        got = rec[dev].model(crops.to(dev)).cpu()
+    # Features of ~50 in magnitude through 100 layers: 1e-5 relative.
+    err = float((got - ref).abs().max())
+    if not err <= 1e-5 * float(ref.abs().max()):
+        raise AssertionError(f"card vs CPU ArcFace features: max abs error "
+                             f"{err}")
+    log(f"card vs CPU float32 ArcFace features: max abs error {err:.2e} "
+        f"(largest feature {float(ref.abs().max()):.2f})")
+
+
 def main():
     import torch
 
@@ -162,12 +546,19 @@ def main():
     sys.path[:0] = [str(REPO), str(REPO / "tests")]
     import numpy as np
 
+    from terran_tpu_torch.face.detection import RetinaFaceDetector
     from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
     from terran_tpu_torch.pose import Estimation
     from terran_tpu_torch.pose.openpose import OpenPoseEstimator
     from terran_tpu_torch.utils import cuda_build
-    from terran_tpu_torch.utils.convert import convert_openpose
-    from torch_oracle import random_openpose_state_dict
+    from terran_tpu_torch.utils.convert import (
+        convert_arcface, convert_openpose, convert_retinaface,
+    )
+    from torch_oracle import (
+        random_arcface_state_dict, random_openpose_state_dict,
+        random_retinaface_state_dict,
+    )
 
     dev = torch.device(DEVICE)
     # The checkpoint registry's home lives in the checkout's build dir.
@@ -178,12 +569,16 @@ def main():
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    # 2. Build.
+    # 2. Build, one nvcc per source, all started together.
     start = time.perf_counter()
+    cuda_build.load_libraries("fused_peaks.cu", "nms.cu")
     fp._library()
-    log(f"build: fused_peaks.cu (scan + merge kernels) in {time.perf_counter() - start:.2f} s "
-        f"(nvcc {cuda_build.build_seconds.get('fused_peaks.cu', 0.0):.2f} "
-        f"s; 0 = cached)")
+    nms._library()
+    nvcc_s = ", ".join(f"{name} {cuda_build.build_seconds.get(name, 0.0):.2f} s"
+                       for name in ("fused_peaks.cu", "nms.cu"))
+    log(f"build: fused_peaks.cu (scan + merge kernels) and nms.cu "
+        f"(suppression kernel) in {time.perf_counter() - start:.2f} s "
+        f"(nvcc {nvcc_s}; 0 = cached)")
 
     # 3. Kernel vs plain version on the card.
     rng = np.random.default_rng(SEED)
@@ -287,7 +682,16 @@ def main():
         f"plain version {plain_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms ({bound_by})")
 
-    # 4. The main path, bf16, through the task API.
+    # The NMS kernel against its plain version, on the detector's own
+    # boxes among others.
+    face_rng = np.random.default_rng(SEED + 1)
+    rf_params = convert_retinaface(random_retinaface_state_dict(face_rng))
+    arc_params = convert_arcface(random_arcface_state_dict(face_rng))
+    detector = RetinaFaceDetector(params=rf_params)
+    nms_fields, nms_err, model_boxes = nms_phase(detector, frames, face_rng,
+                                                 dev, card)
+
+    # 4. The main paths, bf16, through the task APIs.
     task = Estimation(params=state_dict)
     if task.model.model.compute_dtype != torch.bfloat16:
         raise AssertionError("the main path must run the default bf16 "
@@ -332,6 +736,9 @@ def main():
         raise AssertionError("max_peaks=4 did not escalate")
     log(f"max_peaks=4: {small.model.escalation_count} escalation(s)")
 
+    nms_launches = detection_phase(rf_params, frames, card)
+    recognition_phase(arc_params, frames, face_rng, card)
+
     # 5. float32, TF32 off: fused vs materialised, card vs CPU.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -375,6 +782,8 @@ def main():
                                  f"error {err}")
         log(f"card vs CPU float32 forward: {name} max abs error {err:.2e}")
 
+    face_float32_phase(rf_params, arc_params, face_rng, dev)
+
     # 6. The profiler, last: it stays attached to the process and slows
     #    later launches. One call's CUDA kernels, then the kernels' device
     #    time a call at K=32 and K=128.
@@ -394,6 +803,18 @@ def main():
                         for name, t in sorted(names.items()))
             + ")")
 
+    # One suppression call at N=8, K=256 on the model's pre-selected boxes.
+    top = nms.nms_fixed(*model_boxes, 0.4, score_threshold=0.5, top_k=256)
+    valid = torch.isfinite(top[1])
+    nms_kernels, nms_kernel_ms, names = profile_call(
+        lambda: nms.suppress(top[0], valid, 0.4), 20)
+    log(f"CUDA kernels in one NMS suppress call: {nms_kernels:g} "
+        f"({', '.join(sorted(names))}); device time {nms_kernel_ms:.4f} ms "
+        f"a call at N=8, K=256 ({card})")
+    if nms_kernels != 1:
+        raise AssertionError(f"{nms_kernels} CUDA kernels in one suppress "
+                             "call, expected 1")
+
     # 7. Results.
     log(json.dumps({"kernels": [{
         "name": "fused_peaks",
@@ -411,6 +832,26 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+        "card": card,
+    }, {
+        "name": "nms",
+        "route": "cuda",
+        "source": "terran_tpu_torch/csrc/nms.cu",
+        "replaces": "terran_tpu/ops/nms.py:82",
+        "launches": nms_launches,
+        "max_abs_err": nms_err,
+        "exact": nms_err == 0.0,
+        "ms": nms_fields[256]["ms"],
+        "kernel_ms": nms_kernel_ms,
+        "ms_k1024": nms_fields[1024]["ms"],
+        "nms_fixed_ms": nms_fields[256]["call_ms"],
+        "kernels_per_call": nms_kernels,
+        "plain_ms": nms_fields[256]["plain_ms"],
+        "plain_ms_k1024": nms_fields[1024]["plain_ms"],
+        "bound_ms": nms_fields[256]["bound_ms"],
+        "bound_by": nms_fields[256]["bound_by"],
+        "chain_steps": nms_fields[256]["chain_steps"],
         "library_ms": None,
         "card": card,
     }]}))

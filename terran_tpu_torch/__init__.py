@@ -1,7 +1,8 @@
 """terran_tpu_torch: the PyTorch and CUDA port of terran_tpu.
 
 The same public names as ``terran_tpu`` for the parts ported so far
-(``pose_estimation``, ``Estimation``, ``Keypoint``, ``default_device``),
+(``face_detection``, ``Detection``, ``extract_features``, ``Recognition``,
+``pose_estimation``, ``Estimation``, ``Keypoint``, ``default_device``),
 running on an NVIDIA card by default. Imports are lazy (PEP 562), so
 ``import terran_tpu_torch`` touches neither the checkpoint store nor the
 card.
@@ -11,6 +12,10 @@ __version__ = "0.1.0"
 
 _LAZY = {
     "default_device": ("terran_tpu_torch.runtime", "default_device"),
+    "face_detection": ("terran_tpu_torch.face", "face_detection"),
+    "Detection": ("terran_tpu_torch.face", "Detection"),
+    "extract_features": ("terran_tpu_torch.face", "extract_features"),
+    "Recognition": ("terran_tpu_torch.face", "Recognition"),
     "pose_estimation": ("terran_tpu_torch.pose", "pose_estimation"),
     "Estimation": ("terran_tpu_torch.pose", "Estimation"),
     "Keypoint": ("terran_tpu_torch.pose", "Keypoint"),

@@ -5,9 +5,9 @@ The registry, home directory and ``<id>.npz`` store of
 under ``TERRAN_TPU_HOME`` (default ``~/.terran-tpu``), and this one turns
 the stored JAX pytrees into state dicts with
 :func:`terran_tpu_torch.utils.convert.params_from_jax`. An entry's
-``class`` names this package's wrapper. Only the classes this package has
-are registered. Downloading and the CLI are not part of this package yet:
-a checkpoint missing from the store raises.
+``class`` names this package's wrapper: RetinaFace, ArcFace and
+OpenPose. Downloading and the CLI are not part of this package yet: a
+checkpoint missing from the store raises.
 """
 
 import importlib
@@ -21,6 +21,39 @@ CHECKPOINT_DIR = "checkpoints"
 
 # Same ids, tasks and aliases as the reference registry (checkpoint.py:29-103).
 CHECKPOINTS = [
+    {
+        "id": "b5d77fff",
+        "name": "RetinaFace",
+        "description": "RetinaFace with mnet backbone.",
+        "task": "face-detection",
+        "class": "terran_tpu_torch.face.detection.RetinaFaceDetector",
+        "model_key": "retinaface",
+        "alias": "gpu-realtime",
+        "default": True,
+        "performance": 1.0,
+        "evaluation": {"value": 0.76, "metric": "mAP", "is_reported": False},
+        "url": (
+            "https://github.com/nagitsu/terran/releases/download/0.0.1/"
+            "retinaface-mnet.pth"
+        ),
+    },
+    {
+        "id": "d206e4b0",
+        "name": "ArcFace",
+        "description": "ArcFace with Resnet 100 backbone.",
+        "task": "face-recognition",
+        "class": "terran_tpu_torch.face.recognition.ArcFaceRecognizer",
+        "model_key": "arcface",
+        "alias": "gpu-realtime",
+        "default": True,
+        "performance": 0.9,
+        "evaluation": {"value": 0.80, "metric": "accuracy",
+                       "is_reported": False},
+        "url": (
+            "https://github.com/nagitsu/terran/releases/download/0.0.1/"
+            "arcface-resnet100.pth"
+        ),
+    },
     {
         "id": "11a769ad",
         "name": "OpenPose",

@@ -1,0 +1,91 @@
+"""ArcFace LResNet100E-IR in PyTorch.
+
+The port of ``terran_tpu/models/arcface.py``, which re-implements the
+reference ``FaceResNet100`` (arcface/model.py:38-97): pre-activation
+residual units (BN-Conv-BN-PReLU-Conv-BN, with a conv shortcut on the
+stride-2 unit of each stage), stages [3, 13, 30, 3] at channels
+[64, 64, 128, 256, 512], preprocessing ``(x - 127.5) * 0.0078125`` in
+float32, and a BN-Flatten-Linear-BN1d head whose BN1d the converter folds
+into the linear layer. Dropout is inference-disabled and omitted.
+
+Inputs are NHWC RGB crops in [0, 255] (the converter folds the reference's
+BGR flip into the first conv); the trunk runs NCHW in the compute dtype
+(cuDNN on the card). The ``embed`` projection stays float32 and flattens
+the (7, 7, 512) map in (h, w, C) order, the order of the JAX model's
+Dense kernel.
+"""
+
+import torch
+from torch import nn
+
+from terran_tpu_torch.models.layers import Affine, ConvAffine, prelu
+
+UNITS_PER_STAGE = (3, 13, 30, 3)
+CHANNELS = (64, 64, 128, 256, 512)
+PREPROC_MEAN = 127.5
+PREPROC_STD = 0.0078125
+EMBEDDING_DIM = 512
+
+
+class Unit(nn.Module):
+    """Pre-activation residual unit (arcface/model.py:4-35)."""
+
+    def __init__(self, in_channels, features, stride=1, has_shortcut=False):
+        super().__init__()
+        self.pre = Affine(in_channels)
+        self.conv1 = ConvAffine(in_channels, features, 3, 1, 1, act="none")
+        self.prelu = nn.Parameter(torch.full((features,), 0.25))
+        self.conv2 = ConvAffine(features, features, 3, stride, 1, act="none")
+        self.shortcut = (
+            ConvAffine(in_channels, features, 1, stride, 0, act="none")
+            if has_shortcut else None
+        )
+
+    def forward(self, x):
+        body = prelu(self.conv1(self.pre(x)), self.prelu)
+        body = self.conv2(body)
+        return body + (self.shortcut(x) if self.shortcut is not None else x)
+
+
+class FaceResNet100(nn.Module):
+    """(B, 112, 112, 3) crops -> unnormalised (B, 512) float32 features."""
+
+    def __init__(self):
+        super().__init__()
+        self.initial = ConvAffine(3, CHANNELS[0], 3, 1, 1, act="none")
+        self.initial_prelu = nn.Parameter(torch.full((CHANNELS[0],), 0.25))
+        for stage_idx, num_units in enumerate(UNITS_PER_STAGE):
+            for unit_idx in range(num_units):
+                cin = CHANNELS[stage_idx + (unit_idx > 0)]
+                self.add_module(
+                    f"stage{stage_idx}_unit{unit_idx}",
+                    Unit(cin, CHANNELS[stage_idx + 1],
+                         stride=2 if unit_idx == 0 else 1,
+                         has_shortcut=unit_idx == 0),
+                )
+        self.head_pre = Affine(CHANNELS[-1])
+        self.embed = nn.Linear(7 * 7 * CHANNELS[-1], EMBEDDING_DIM)
+
+    @property
+    def compute_dtype(self):
+        return self.initial.conv.weight.dtype
+
+    def forward(self, x):
+        x = ((x.to(torch.float32) - PREPROC_MEAN) * PREPROC_STD).to(
+            self.compute_dtype)
+        x = x.permute(0, 3, 1, 2)
+        x = prelu(self.initial(x), self.initial_prelu)
+        for stage_idx, num_units in enumerate(UNITS_PER_STAGE):
+            for unit_idx in range(num_units):
+                x = getattr(self, f"stage{stage_idx}_unit{unit_idx}")(x)
+        x = self.head_pre(x)
+        # Flatten in (h, w, C) order, then project in float32.
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).to(torch.float32)
+        return torch.matmul(x, self.embed.weight.t()) + self.embed.bias
+
+
+def normalize_embeddings(features):
+    """L2-normalise embeddings (reference: sklearn normalize,
+    wrapper.py:176)."""
+    norm = torch.sqrt(torch.sum(features * features, dim=-1, keepdim=True))
+    return features / torch.clamp(norm, min=1e-12)

@@ -1,0 +1,172 @@
+"""Fixed-size masked non-maximum suppression.
+
+The port of ``terran_tpu/ops/nms.py``: pre-select the top-K candidates by
+score, run greedy suppression over them, return fixed-shape outputs and a
+keep mask. The IoU and the greedy order match torchvision's NMS, which
+the reference detector calls, so the kept set equals the reference's
+whenever at most K candidates clear the score threshold.
+
+The suppression is :func:`suppress`: for a CUDA tensor one launch of
+``csrc/nms.cu`` (built by ``nvcc`` at first use), for a CPU tensor its
+plain version, :func:`suppress_plain`, which is the reference's
+``fori_loop`` body written out.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+_SOURCE = "nms.cu"
+_lib = None
+
+
+def iou_matrix(boxes_a, boxes_b):
+    """Pairwise IoU of (..., A, 4) and (..., B, 4) boxes in (x1, y1, x2,
+    y2) form -> (..., A, B) float32, in the operation order of
+    ``terran_tpu/ops/nms.py::iou_matrix``."""
+    area_a = ((boxes_a[..., 2] - boxes_a[..., 0])
+              * (boxes_a[..., 3] - boxes_a[..., 1]))
+    area_b = ((boxes_b[..., 2] - boxes_b[..., 0])
+              * (boxes_b[..., 3] - boxes_b[..., 1]))
+    lt = torch.maximum(boxes_a[..., :, None, :2], boxes_b[..., None, :, :2])
+    rb = torch.minimum(boxes_a[..., :, None, 2:], boxes_b[..., None, :, 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
+    return torch.where(union > 0, inter / union, 0.0)
+
+
+def suppress_plain(boxes, valid, iou_threshold):
+    """Greedy suppression over (N, K, 4) pre-selected boxes in descending
+    score order with (N, K) validity -> (N, K) keep mask: candidate i, if
+    not suppressed and valid, suppresses every later candidate whose IoU
+    with it exceeds the threshold (``nms.py:82-91``)."""
+    n, k = valid.shape
+    ious = iou_matrix(boxes, boxes)
+    later = torch.arange(k, device=boxes.device)
+    suppressed = torch.zeros((n, k), dtype=torch.bool, device=boxes.device)
+    for i in range(k):
+        keep_i = ~suppressed[:, i] & valid[:, i]
+        row = ious[:, i] > iou_threshold
+        suppressed |= keep_i[:, None] & row & (later > i)
+    return ~suppressed & valid
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from terran_tpu_torch.utils.cuda_build import load_library
+
+        lib = load_library(_SOURCE)
+        lib.nms_suppress.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.nms_suppress.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def suppress(boxes, valid, iou_threshold):
+    """:func:`suppress_plain` for a CPU tensor; one launch of the CUDA
+    kernel for a CUDA tensor."""
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"expected (N, K, 4) boxes, got {tuple(boxes.shape)}")
+    if tuple(valid.shape) != tuple(boxes.shape[:2]):
+        raise ValueError(f"valid {tuple(valid.shape)} does not match boxes "
+                         f"{tuple(boxes.shape)}")
+    if boxes.device.type == "cpu":
+        return suppress_plain(boxes, valid, iou_threshold)
+    if boxes.device.type != "cuda" or valid.device != boxes.device:
+        raise ValueError(f"no NMS kernel for boxes on {boxes.device} and "
+                         f"valid on {valid.device}")
+    n, k = valid.shape
+    keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
+    if n * k == 0:
+        return keep
+    lib = _library()
+    boxes = boxes.to(torch.float32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    with torch.cuda.device(boxes.device):
+        err = lib.nms_suppress(
+            boxes.data_ptr(), valid.data_ptr(), n, k, float(iou_threshold),
+            keep.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(boxes.device.index),
+        )
+    if err != 0:
+        raise RuntimeError(f"NMS kernel launch failed at N={n}, K={k}: "
+                           f"CUDA error {err}")
+    suppress.launches += 1
+    return keep
+
+
+# Kernel launches since the count was last set to 0.
+suppress.launches = 0
+
+
+def nms_fixed(boxes, scores, iou_threshold, score_threshold=0.0, top_k=256):
+    """Greedy NMS with fixed-size outputs, per image.
+
+    boxes (N, A, 4) and scores (N, A) float, or (A, 4) and (A,) for one
+    image. Candidates below ``score_threshold`` are masked out; the top
+    ``top_k`` by score are kept in descending order, ties to the lower
+    index as ``jax.lax.top_k`` does (a stable descending sort), and padded
+    with -inf scores when A < top_k.
+
+    Returns (boxes (N, K, 4), scores (N, K), keep (N, K) bool, order (N, K)
+    int64 indices into the inputs, overflow (N,) bool): ``overflow`` is set
+    where more than ``top_k`` candidates cleared the score threshold, i.e.
+    the pre-selection dropped real candidates.
+    """
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores = boxes[None], scores[None]
+    n, a = scores.shape
+    above = scores >= score_threshold
+    overflow = above.sum(dim=1) > top_k
+    masked = torch.where(above, scores, float("-inf"))
+    k = min(top_k, a)
+    top_scores, order = torch.sort(masked, dim=1, descending=True,
+                                   stable=True)
+    top_scores, order = top_scores[:, :k], order[:, :k]
+    if k < top_k:
+        top_scores = torch.nn.functional.pad(top_scores, (0, top_k - k),
+                                             value=float("-inf"))
+        order = torch.nn.functional.pad(order, (0, top_k - k))
+    top_boxes = boxes.gather(1, order[..., None].expand(n, top_k, 4))
+    valid = torch.isfinite(top_scores)
+    keep = suppress(top_boxes, valid, iou_threshold)
+    out = (top_boxes, top_scores, keep, order, overflow)
+    return tuple(t[0] for t in out) if single else out
+
+
+def nms_numpy_reference(boxes, scores, iou_threshold):
+    """O(n^2) numpy greedy NMS, the test oracle (copied from
+    ``terran_tpu/ops/nms.py``)."""
+    order = np.argsort(-scores, kind="stable")
+    keep = []
+    suppressed = np.zeros(len(scores), bool)
+    for idx in order:
+        if suppressed[idx]:
+            continue
+        keep.append(idx)
+        for jdx in order:
+            if jdx == idx or suppressed[jdx]:
+                continue
+            if scores[jdx] <= scores[idx]:
+                x1 = max(boxes[idx, 0], boxes[jdx, 0])
+                y1 = max(boxes[idx, 1], boxes[jdx, 1])
+                x2 = min(boxes[idx, 2], boxes[jdx, 2])
+                y2 = min(boxes[idx, 3], boxes[jdx, 3])
+                inter = max(0.0, x2 - x1) * max(0.0, y2 - y1)
+                area_i = (boxes[idx, 2] - boxes[idx, 0]) * (
+                    boxes[idx, 3] - boxes[idx, 1]
+                )
+                area_j = (boxes[jdx, 2] - boxes[jdx, 0]) * (
+                    boxes[jdx, 3] - boxes[jdx, 1]
+                )
+                union = area_i + area_j - inter
+                if union > 0 and inter / union > iou_threshold:
+                    suppressed[jdx] = True
+    return np.array(keep, dtype=np.int64)

@@ -1,0 +1,204 @@
+"""Similarity-transform estimation and the affine warp of face alignment.
+
+The port of the per-pixel path of ``terran_tpu/ops/warp.py``, which
+replaces the reference's skimage ``SimilarityTransform.estimate`` + PIL
+``Image.transform(AFFINE, BILINEAR)`` (arcface/wrapper.py:52-69):
+
+- :func:`umeyama`, :func:`alignment_matrix`, :func:`alignment_matrices`:
+  the closed-form least-squares similarity (Umeyama 1991), host numpy,
+  copied from the JAX package;
+- :func:`warp_affine`, :func:`warp_affine_batch`: bilinear inverse-warp
+  sampling on the image's device in PIL's convention (transform evaluated
+  at output pixel centres, inside test on the raw source coordinates,
+  taps clamped to the image, fill 0).
+"""
+
+import numpy as np
+import torch
+
+# Canonical 5-landmark destination template for 112x112 alignment
+# (arcface/wrapper.py:39-48, including the +8px x-shift for width 112).
+ARCFACE_TEMPLATE = np.array(
+    [
+        [38.2946, 51.6963],
+        [73.5318, 51.5014],
+        [56.0252, 71.7366],
+        [41.5493, 92.3655],
+        [70.7299, 92.2041],
+    ],
+    dtype=np.float32,
+)
+
+
+def umeyama(src, dst):
+    """Least-squares similarity transform mapping ``src`` points to
+    ``dst``: a (3, 3) matrix ``T`` with ``T @ [x, y, 1] ~= [x', y', 1]``,
+    as skimage ``SimilarityTransform.estimate(src, dst)``."""
+    src = np.asarray(src, dtype=np.float64)
+    dst = np.asarray(dst, dtype=np.float64)
+    n, d = src.shape
+
+    mu_src = src.mean(axis=0)
+    mu_dst = dst.mean(axis=0)
+    src_c = src - mu_src
+    dst_c = dst - mu_dst
+
+    cov = dst_c.T @ src_c / n
+    u, s, vt = np.linalg.svd(cov)
+
+    sign = np.ones(d)
+    if np.linalg.det(cov) < 0:
+        sign[-1] = -1
+    rank = np.linalg.matrix_rank(cov)
+    if rank == d - 1:
+        if np.linalg.det(u) * np.linalg.det(vt) < 0:
+            sign[-1] = -1
+    rotation = u @ np.diag(sign) @ vt
+
+    var_src = (src_c ** 2).sum() / n
+    scale = (s * sign).sum() / var_src if var_src > 0 else 1.0
+
+    t = np.eye(3)
+    t[:d, :d] = scale * rotation
+    t[:d, d] = mu_dst - scale * rotation @ mu_src
+    return t.astype(np.float32)
+
+
+def alignment_matrix(landmarks, template=ARCFACE_TEMPLATE):
+    """Inverse (output->input) 2x3 matrix aligning a face to the template:
+    the reference estimates landmarks->template and hands PIL the inverse
+    (wrapper.py:52-61)."""
+    forward = umeyama(np.asarray(landmarks, dtype=np.float32), template)
+    return np.linalg.inv(forward)[:2].astype(np.float32)
+
+
+def alignment_matrices(landmarks, template=ARCFACE_TEMPLATE):
+    """Batched :func:`alignment_matrix`: (M, 5, 2) -> (M, 2, 3), one
+    vectorised solve with the scalar path's float64 arithmetic, 2x2 SVDs
+    and reflection/rank guards."""
+    src = np.asarray(landmarks, dtype=np.float64)
+    if src.ndim != 3:
+        raise ValueError("expected (M, points, 2) landmarks")
+    m, n, d = src.shape
+    dst = np.asarray(template, dtype=np.float64)
+
+    mu_src = src.mean(axis=1)
+    mu_dst = dst.mean(axis=0)
+    src_c = src - mu_src[:, None]
+    dst_c = dst - mu_dst
+
+    cov = np.einsum("ki,mkj->mij", dst_c, src_c) / n
+    u, s, vt = np.linalg.svd(cov)
+
+    sign = np.ones((m, d))
+    neg_det = np.linalg.det(cov) < 0
+    sign[neg_det, -1] = -1
+    # Rank-deficient (collinear) guard: rank d-1 flips the sign when
+    # det(u) * det(vt) < 0.
+    tol = s[:, 0] * max(cov.shape[1:]) * np.finfo(np.float64).eps
+    rank = (s > tol[:, None]).sum(axis=1)
+    flip = (rank == d - 1) & (np.linalg.det(u) * np.linalg.det(vt) < 0)
+    sign[flip & ~neg_det, -1] = -1
+
+    rotation = u * sign[:, None, :] @ vt
+    var_src = (src_c ** 2).sum(axis=(1, 2)) / n
+    scale = np.where(
+        var_src > 0, (s * sign).sum(axis=1) / np.where(var_src > 0,
+                                                       var_src, 1.0), 1.0
+    )
+
+    forward = np.zeros((m, 3, 3))
+    forward[:, :d, :d] = scale[:, None, None] * rotation
+    forward[:, :d, d] = mu_dst - np.einsum(
+        "mij,mj->mi", scale[:, None, None] * rotation, mu_src
+    )
+    forward[:, d, d] = 1.0
+    # The scalar path inverts the float32 matrix; so does this one.
+    inverse = np.linalg.inv(forward.astype(np.float32))
+    return inverse[:, :2].astype(np.float32)
+
+
+def _blend_taps(p00, p01, p10, p11, x0i, y0i, fx, fy, inside, h, w):
+    """PIL's edge replication and the bilinear lerp. ``p_ab`` are the taps
+    at the clamped patch origin (+a rows, +b cols): at y0 == -1 both tap
+    rows are source row 0, at y0 == h-1 both are row h-1; the same for
+    columns."""
+    ly = (y0i == -1)[..., None]
+    hy = (y0i == h - 1)[..., None]
+    lx = (x0i == -1)[..., None]
+    hx = (x0i == w - 1)[..., None]
+    r0c0 = torch.where(hy, p10, p00)
+    r0c1 = torch.where(hy, p11, p01)
+    r1c0 = torch.where(ly, p00, p10)
+    r1c1 = torch.where(ly, p01, p11)
+    v00 = torch.where(hx, r0c1, r0c0)
+    v01 = torch.where(lx, r0c0, r0c1)
+    v10 = torch.where(hx, r1c1, r1c0)
+    v11 = torch.where(lx, r1c0, r1c1)
+
+    fx = fx[..., None]
+    fy = fy[..., None]
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
+    out = top * (1 - fy) + bot * fy
+    return torch.where(inside[..., None], out, 0.0)
+
+
+def warp_affine_batch(image, matrices, out_h=112, out_w=112):
+    """Warp crops out of one (H, W, C) image (any dtype, on any device) by
+    (K, 2, 3) output->input matrices -> (K, out_h, out_w, C) float32 on the
+    image's device.
+
+    PIL convention: the transform is evaluated at output pixel centres
+    and the inside test is on those raw coordinates in [0, size); the
+    sample point is shifted by -0.5 and its 2x2 taps are clamped to the
+    image (edge replication); outside pixels are 0. The taps are gathered
+    from the unpadded image at a patch origin clamped to [0, size-2],
+    then :func:`_blend_taps` restores the edge replication, as
+    ``terran_tpu/ops/warp.py::_warp_affine_core`` does. A source smaller
+    than 2x2 is edge-padded to 2x2 first; ``h``/``w`` stay the logical
+    size.
+    """
+    h, w, c = image.shape
+    if h < 2 or w < 2:
+        rows = torch.arange(max(h, 2), device=image.device).clamp(max=h - 1)
+        cols = torch.arange(max(w, 2), device=image.device).clamp(max=w - 1)
+        image = image[rows][:, cols]
+    phys_h, phys_w = image.shape[:2]
+    dev = image.device
+    m = torch.as_tensor(matrices, dtype=torch.float32, device=dev)
+    m = m.reshape(-1, 2, 3)[:, :, :, None, None]  # (K, 2, 3, 1, 1)
+
+    ys = torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5
+    xs = torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5
+    yg, xg = torch.meshgrid(ys, xs, indexing="ij")  # (out_h, out_w)
+
+    raw_x = m[:, 0, 0] * xg + m[:, 0, 1] * yg + m[:, 0, 2]
+    raw_y = m[:, 1, 0] * xg + m[:, 1, 1] * yg + m[:, 1, 2]
+    inside = (raw_x >= 0) & (raw_x < w) & (raw_y >= 0) & (raw_y < h)
+
+    src_x = raw_x - 0.5
+    src_y = raw_y - 0.5
+    x0 = torch.floor(src_x)
+    y0 = torch.floor(src_y)
+    fx = src_x - x0
+    fy = src_y - y0
+    x0i = x0.to(torch.int32)
+    y0i = y0.to(torch.int32)
+
+    oy = torch.clamp(y0i, 0, phys_h - 2).to(torch.int64)
+    ox = torch.clamp(x0i, 0, phys_w - 2).to(torch.int64)
+    flat = image.reshape(phys_h * phys_w, c)
+    origin = oy * phys_w + ox
+
+    def tap(dy, dx):
+        return flat[origin + (dy * phys_w + dx)].to(torch.float32)
+
+    return _blend_taps(tap(0, 0), tap(0, 1), tap(1, 0), tap(1, 1),
+                       x0i, y0i, fx, fy, inside, h, w)
+
+
+def warp_affine(image, matrix, out_h=112, out_w=112):
+    """:func:`warp_affine_batch` for one (2, 3) matrix -> (out_h, out_w,
+    C) float32."""
+    return warp_affine_batch(image, matrix, out_h, out_w)[0]

@@ -70,5 +70,29 @@ def cast_params_for_compute(state_dict, compute_dtype, keep_f32=()):
     }
 
 
-# Name prefixes that keep float32 storage per model family.
-PARAMS_KEEP_F32 = {"openpose": ()}
+# Name prefixes that keep float32 storage per model family: ArcFace's
+# 'embed' projection computes in float32.
+PARAMS_KEEP_F32 = {"arcface": ("embed",), "retinaface": (), "openpose": ()}
+
+
+# ---------------------------------------------------------------------------
+# Shape bucketing
+# ---------------------------------------------------------------------------
+
+def round_up(x, multiple):
+    return -(-x // multiple) * multiple
+
+
+def bucket_shape(h, w, mode="exact", multiple=64):
+    """The (H, W) the detector runs at for an (h, w) input.
+
+    - ``exact``: the input's own shape.
+    - ``pad``: H and W rounded up to ``multiple``, so that mixed sizes
+      share a few shapes; detections whose anchor cell lies in the padded
+      margin are masked out.
+    """
+    if mode == "exact":
+        return h, w
+    if mode == "pad":
+        return round_up(h, multiple), round_up(w, multiple)
+    raise ValueError(f"unknown bucketing mode: {mode}")

@@ -2,7 +2,8 @@
 
 ``resize_factory`` follows ``terran_tpu/utils/batching.py`` but resizes
 with :func:`terran_tpu_torch.ops.resize.resize_bilinear_u8` on the given
-device instead of cv2; ``merge_factory`` is the same centre-padding merge.
+device instead of cv2; ``merge_factory`` is the same centre-padding merge,
+done on the device for a list of device tensors.
 """
 
 import math
@@ -79,7 +80,7 @@ def merge_factory(method="padding", coord_keys=("bbox", "landmarks")):
     """
 
     def merge_in(images):
-        if isinstance(images, np.ndarray):
+        if isinstance(images, (np.ndarray, torch.Tensor)):
             return images, {"merged": False}
 
         params = {"merged": True}
@@ -92,7 +93,13 @@ def merge_factory(method="padding", coord_keys=("bbox", "landmarks")):
 
         max_height = max(arr.shape[0] for arr in images)
         max_width = max(arr.shape[1] for arr in images)
-        padded = np.zeros((len(images), max_height, max_width, 3), dtype=np.uint8)
+        shape = (len(images), max_height, max_width, 3)
+        # Device tensors (frames resized on the card) are padded there.
+        on_device = isinstance(images[0], torch.Tensor)
+        padded = (
+            torch.zeros(shape, dtype=torch.uint8, device=images[0].device)
+            if on_device else np.zeros(shape, dtype=np.uint8)
+        )
 
         pads_per_image = []
         for idx, image in enumerate(images):
@@ -103,7 +110,9 @@ def merge_factory(method="padding", coord_keys=("bbox", "landmarks")):
                 (int(math.ceil(diff_width)), int(math.floor(diff_width))),
                 (0, 0),
             ]
-            padded[idx, ...] = np.pad(image, pad_values)
+            top, left = pad_values[0][0], pad_values[1][0]
+            padded[idx, top:top + image.shape[0],
+                   left:left + image.shape[1]] = image
             pads_per_image.append(pad_values)
 
         params["pads_per_image"] = pads_per_image

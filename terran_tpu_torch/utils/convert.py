@@ -2,8 +2,12 @@
 
 Two sources:
 
-- the reference's torch ``.pth`` state dicts (``convert_openpose``), whose
-  OIHW conv weights this package keeps as they are;
+- the reference's torch ``.pth`` state dicts (``convert_retinaface``,
+  ``convert_arcface``, ``convert_openpose``), whose OIHW conv weights this
+  package keeps, with the folds of ``terran_tpu/utils/convert.py``:
+  inference BatchNorm becomes a per-channel (scale, bias) affine, the
+  RGB->BGR input flip goes into the first conv's input channels, and
+  ArcFace's head BN1d goes into its linear layer;
 - the converted store that ``terran_tpu`` writes (``<id>.npz``, a flattened
   JAX pytree with HWIO kernels), through :func:`params_from_jax`.
 
@@ -26,6 +30,39 @@ def _tensor(a):
     return torch.from_numpy(np.ascontiguousarray(_np(a)))
 
 
+def conv_weight(w, flip_rgb=False):
+    """An OIHW conv weight as a float32 tensor; ``flip_rgb`` reverses the
+    input channels, so a network fed BGR takes RGB."""
+    w = _np(w)
+    if flip_rgb:
+        w = w[:, ::-1, :, :]
+    return _tensor(w)
+
+
+def bn_affine(sd, prefix, eps):
+    """Inference BatchNorm as (scale, bias): ``scale = gamma /
+    sqrt(var + eps)``, ``bias = beta - mean * scale`` (float32 numpy)."""
+    gamma = _np(sd[f"{prefix}.weight"])
+    beta = _np(sd[f"{prefix}.bias"])
+    mean = _np(sd[f"{prefix}.running_mean"])
+    var = _np(sd[f"{prefix}.running_var"])
+    scale = gamma / np.sqrt(var + eps)
+    bias = beta - mean * scale
+    return scale, bias
+
+
+def flatten_state(tree, prefix=""):
+    """Nested dict -> state dict with '.'-joined keys."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}.{key}" if prefix else key
+        if isinstance(value, dict):
+            flat.update(flatten_state(value, path))
+        else:
+            flat[path] = value
+    return flat
+
+
 class Mapper:
     """Tracks consumed keys so full coverage can be asserted."""
 
@@ -37,12 +74,40 @@ class Mapper:
         self.used.add(key)
         return self.sd[key]
 
-    def conv_bias(self, prefix):
+    def _use_bn(self, bn_prefix):
+        for suffix in ("weight", "bias", "running_mean", "running_var",
+                       "num_batches_tracked"):
+            self.used.add(f"{bn_prefix}.{suffix}")
+
+    def conv_bias(self, prefix, flip_rgb=False):
         """(weight OIHW, bias) of a biased conv, as float32 tensors."""
         return (
-            _tensor(self.take(f"{prefix}.weight")),
+            conv_weight(self.take(f"{prefix}.weight"), flip_rgb),
             _tensor(self.take(f"{prefix}.bias")),
         )
+
+    def conv_affine(self, conv_prefix, bn_prefix, eps, flip_rgb=False):
+        """A conv followed by a BN, as a :class:`ConvAffine`'s parameters.
+        A conv bias feeding the BN (the reference's FPN and context convs
+        keep torch's default bias=True) folds through the affine:
+        BN(Wx + b) = scale * Wx + (scale * b + bias)."""
+        weight = conv_weight(self.take(f"{conv_prefix}.weight"), flip_rgb)
+        self._use_bn(bn_prefix)
+        scale, bias = bn_affine(self.sd, bn_prefix, eps)
+        conv_bias_key = f"{conv_prefix}.bias"
+        if conv_bias_key in self.sd:
+            bias = bias + scale * _np(self.take(conv_bias_key))
+        return {"conv": {"weight": weight}, "scale": _tensor(scale),
+                "bias": _tensor(bias)}
+
+    def affine(self, bn_prefix, eps):
+        """A standalone BN as an :class:`Affine`'s parameters."""
+        self._use_bn(bn_prefix)
+        scale, bias = bn_affine(self.sd, bn_prefix, eps)
+        return {"scale": _tensor(scale), "bias": _tensor(bias)}
+
+    def prelu(self, prefix):
+        return _tensor(self.take(f"{prefix}.weight"))
 
     def assert_consumed(self):
         remaining = [
@@ -54,6 +119,126 @@ class Mapper:
                 f"unconverted checkpoint keys ({len(remaining)}): "
                 f"{sorted(remaining)[:8]}..."
             )
+
+
+# ---------------------------------------------------------------------------
+# RetinaFace (reference module paths from retinaface/model.py)
+# ---------------------------------------------------------------------------
+
+def convert_retinaface(state_dict):
+    """Reference RetinaFace ``.pth`` state dict -> :class:`RetinaFace`
+    state dict (the layout of ``terran_tpu``'s ``convert_retinaface``)."""
+    m = Mapper(state_dict)
+    eps_base, eps_fpn = 1e-5, 2e-5  # model.py:28 vs model.py:128,180
+
+    def sep_block(torch_prefix):
+        return {
+            "conv_block": m.conv_affine(f"{torch_prefix}.conv_block.0",
+                                        f"{torch_prefix}.conv_block.1",
+                                        eps_base),
+            "sep_block": m.conv_affine(f"{torch_prefix}.sep_block.0",
+                                       f"{torch_prefix}.sep_block.1",
+                                       eps_base),
+        }
+
+    base = {
+        "first_conv": m.conv_affine("base.first_conv_block.0",
+                                    "base.first_conv_block.1", eps_base,
+                                    flip_rgb=True),
+        "first_sep": m.conv_affine("base.first_conv_block.3",
+                                   "base.first_conv_block.4", eps_base),
+    }
+    for i in range(5):
+        base[f"s0_b{i}"] = sep_block(f"base.scales.0.{i}")
+    for i in range(6):
+        base[f"s1_b{i}"] = sep_block(f"base.scales.1.{i}")
+    base["final_b0"] = sep_block("base.final_conv.0")
+    base["final_conv"] = m.conv_affine("base.final_conv.1",
+                                       "base.final_conv.2", eps_base)
+
+    def fpn(name):
+        return m.conv_affine(f"{name}.0", f"{name}.1", eps_fpn)
+
+    def context(p):
+        return {
+            "ctx3": fpn(f"{p}.context_3x3"),
+            "reducer": fpn(f"{p}.dimension_reducer"),
+            "ctx5": fpn(f"{p}.context_5x5"),
+            "ctx7a": fpn(f"{p}.context_7x7"),
+            "ctx7b": m.conv_affine(f"{p}.context_7x7.3", f"{p}.context_7x7.4",
+                                   eps_fpn),
+        }
+
+    refiner = {
+        "conv_s8": fpn("refiner.conv_stride8"),
+        "conv_s16": fpn("refiner.conv_stride16"),
+        "conv_s32": fpn("refiner.conv_stride32"),
+        "aggr_s8": fpn("refiner.aggr_stride8"),
+        "aggr_s16": fpn("refiner.aggr_stride16"),
+        "ctx_s8": context("refiner.context_stride8"),
+        "ctx_s16": context("refiner.context_stride16"),
+        "ctx_s32": context("refiner.context_stride32"),
+    }
+
+    heads = {}
+    for stride in (8, 16, 32):
+        for head in ("cls", "bbox", "landmark"):
+            weight, bias = m.conv_bias(f"outputs.{head}_stride{stride}")
+            heads[f"{head}_s{stride}"] = {"weight": weight, "bias": bias}
+
+    m.assert_consumed()
+    return flatten_state({"base": base, "refiner": refiner, "heads": heads})
+
+
+# ---------------------------------------------------------------------------
+# ArcFace FaceResNet100 (reference module paths from arcface/model.py)
+# ---------------------------------------------------------------------------
+
+ARCFACE_UNITS_PER_STAGE = (3, 13, 30, 3)  # arcface/model.py:44
+
+
+def convert_arcface(state_dict):
+    """Reference ArcFace ``.pth`` state dict -> :class:`FaceResNet100`
+    state dict. The head's BN1d folds into the linear layer, whose input
+    features are permuted from torch's (C, h, w) flatten order to the
+    (h, w, C) order in which the model flattens (as the JAX model does)."""
+    m = Mapper(state_dict)
+    eps = 2e-5
+
+    params = {
+        "initial": m.conv_affine("initial_layer.0", "initial_layer.1", eps,
+                                 flip_rgb=True),
+        "initial_prelu": m.prelu("initial_layer.2"),
+    }
+    for stage_idx, num_units in enumerate(ARCFACE_UNITS_PER_STAGE):
+        for unit_idx in range(num_units):
+            p = f"stages.{stage_idx}.{unit_idx}"
+            unit = {
+                "pre": m.affine(f"{p}.body.0", eps),
+                "conv1": m.conv_affine(f"{p}.body.1", f"{p}.body.2", eps),
+                "prelu": m.prelu(f"{p}.body.3"),
+                "conv2": m.conv_affine(f"{p}.body.4", f"{p}.body.5", eps),
+            }
+            if unit_idx == 0:  # the stride-2 unit has a projection shortcut
+                unit["shortcut"] = m.conv_affine(f"{p}.shortcut.0",
+                                                 f"{p}.shortcut.1", eps)
+            params[f"stage{stage_idx}_unit{unit_idx}"] = unit
+
+    # Head: BN2d -> (Dropout) -> Flatten -> Linear -> BN1d
+    # (arcface/model.py:79-85).
+    params["head_pre"] = m.affine("final_layer.0", eps)
+    w = _np(m.take("final_layer.3.weight"))  # (512, 512 * 7 * 7)
+    b = _np(m.take("final_layer.3.bias"))
+    m._use_bn("final_layer.4")
+    scale, bias = bn_affine(m.sd, "final_layer.4", eps)
+    w = w.reshape(512, 512, 7, 7).transpose(0, 2, 3, 1).reshape(512, -1)
+    # The JAX converter folds as (w * scale[:, None]).T, then stores it
+    # transposed; the same float32 products here.
+    params["embed"] = {"weight": _tensor(w * scale[:, None]),
+                       "bias": _tensor(b * scale + bias)}
+
+    m.assert_consumed()
+    return flatten_state(params)
 
 
 # ---------------------------------------------------------------------------
@@ -96,17 +281,42 @@ def convert_openpose(state_dict):
 
 
 def params_from_jax(params):
-    """JAX params pytree (``{layer: {"conv": {"kernel": HWIO, "bias"}}}``,
-    numpy leaves) -> state dict with OIHW conv weights."""
+    """A ``terran_tpu`` params pytree (numpy leaves) -> this package's
+    state dict, for every model family:
+
+    - ``kernel`` leaves become ``weight``: HWIO conv kernels OIHW (a
+      depthwise ``(kh, kw, 1, C)`` kernel becomes ``(C, 1, kh, kw)``),
+      ``(I, O)`` Dense kernels ``(O, I)``;
+    - the ``conv`` level of a conv with a bias (``ConvBias``, OpenPose) is
+      dropped, since this package's ``ConvBias`` is the conv itself; a
+      ``ConvAffine``'s bias-free ``conv`` level stays;
+    - every other leaf (affine scales and biases, PReLU alphas) carries
+      over under its path.
+    """
     out = {}
-    for name, layer in params.items():
-        conv = layer["conv"]
-        kernel = _np(conv["kernel"])
-        if kernel.ndim != 4:
-            raise ValueError(f"{name}: expected an HWIO conv kernel, got "
-                             f"shape {kernel.shape}")
-        out[f"{name}.weight"] = _tensor(np.transpose(kernel, (3, 2, 0, 1)))
-        out[f"{name}.bias"] = _tensor(conv["bias"])
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            path = f"{prefix}.{key}" if prefix else key
+            if isinstance(value, dict):
+                if key == "conv" and "bias" in value:
+                    path = prefix
+                walk(value, path)
+            elif key == "kernel":
+                kernel = _np(value)
+                if kernel.ndim == 4:
+                    kernel = np.transpose(kernel, (3, 2, 0, 1))
+                elif kernel.ndim == 2:
+                    kernel = kernel.T
+                else:
+                    raise ValueError(f"{path}: unexpected kernel shape "
+                                     f"{kernel.shape}")
+                out[f"{prefix}.weight" if prefix else "weight"] = _tensor(
+                    kernel)
+            else:
+                out[path] = _tensor(value)
+
+    walk(params, "")
     return out
 
 

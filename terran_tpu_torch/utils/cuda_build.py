@@ -1,4 +1,4 @@
-"""Build a CUDA source of this package into a shared library and load it.
+"""Build CUDA sources of this package into shared libraries and load them.
 
 Each ``csrc/*.cu`` file exports a plain C interface; ``nvcc`` compiles it
 for ``sm_90a`` into ``build/kernels/`` beside the package at first use, and
@@ -41,38 +41,59 @@ def nvcc_path():
     raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
 
 
-def load_library(source_name):
-    """ctypes handle of ``csrc/<source_name>``, built on first use."""
+def _target(source_name):
+    source = CSRC_DIR / source_name
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return source, BUILD_DIR / f"{source.stem}-{digest}.so"
+
+
+def load_libraries(*source_names):
+    """ctypes handles of ``csrc/<name>`` for each name, built on first use:
+    one ``nvcc`` for each source that is not built yet, all started
+    together. ``build_seconds[name]`` is the time from their start until
+    that source's build was seen to finish."""
     with _lock:
-        if source_name in _loaded:
-            return _loaded[source_name]
-        source = CSRC_DIR / source_name
-        digest = hashlib.sha256(
-            source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        target = BUILD_DIR / f"{source.stem}-{digest}.so"
-        if not target.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            start = time.perf_counter()
-            # Build into a private name, then rename: concurrent builders
-            # never load a half-written library.
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                result = subprocess.run(
+        builds = []
+        start = time.perf_counter()
+        try:
+            for name in source_names:
+                if name in _loaded:
+                    continue
+                source, target = _target(name)
+                if target.exists():
+                    continue
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                # Build into a private name, then rename: a concurrent
+                # builder never loads a half-written library.
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                builds.append((name, target, tmp, subprocess.Popen(
                     [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(source)],
-                    capture_output=True, text=True,
-                )
-                if result.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed for {source_name} "
-                        f"(exit {result.returncode}):\n{result.stderr}"
-                    )
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True,
+                )))
+            for name, target, tmp, proc in builds:
+                _, stderr = proc.communicate()
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed for {name} "
+                                       f"(exit {proc.returncode}):\n{stderr}")
                 os.replace(tmp, target)
-            finally:
+                build_seconds[name] = time.perf_counter() - start
+        finally:
+            for _, _, tmp, proc in builds:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
                 if os.path.exists(tmp):
                     os.unlink(tmp)
-            build_seconds[source_name] = time.perf_counter() - start
-        lib = ctypes.CDLL(str(target))
-        _loaded[source_name] = lib
-        return lib
+        for name in source_names:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(_target(name)[1]))
+        return [_loaded[name] for name in source_names]
+
+
+def load_library(source_name):
+    """ctypes handle of ``csrc/<source_name>``, built on first use."""
+    return load_libraries(source_name)[0]

@@ -31,9 +31,16 @@ SCRIPT = textwrap.dedent(f"""
 
     torch.cuda.is_available = lambda: False
     import terran_tpu_torch
+    from terran_tpu_torch.face.detection import RetinaFaceDetector
+    from terran_tpu_torch.face.recognition import ArcFaceRecognizer
     from terran_tpu_torch.pose.openpose import OpenPoseEstimator
-    from terran_tpu_torch.utils.convert import convert_openpose
-    from torch_oracle import random_openpose_state_dict
+    from terran_tpu_torch.utils.convert import (
+        convert_arcface, convert_openpose, convert_retinaface,
+    )
+    from torch_oracle import (
+        random_arcface_state_dict, random_openpose_state_dict,
+        random_retinaface_state_dict,
+    )
 
     try:
         terran_tpu_torch.default_device()
@@ -41,12 +48,14 @@ SCRIPT = textwrap.dedent(f"""
         print("default_device raised:", exc)
     else:
         raise SystemExit("default_device() returned without a card")
-    try:
-        OpenPoseEstimator(params={{}})
-    except RuntimeError:
-        pass
-    else:
-        raise SystemExit("the estimator picked a device without a card")
+    for cls in (OpenPoseEstimator, RetinaFaceDetector, ArcFaceRecognizer):
+        try:
+            cls(params={{}})
+        except RuntimeError as exc:
+            assert "no CUDA device" in str(exc), exc
+        else:
+            raise SystemExit(f"{{cls.__name__}} picked a device without a "
+                             "card")
 
     sd = random_openpose_state_dict(np.random.default_rng(0))
     est = OpenPoseEstimator(params=convert_openpose(sd), device="cpu",
@@ -55,6 +64,16 @@ SCRIPT = textwrap.dedent(f"""
         0, 255, (1, 48, 64, 3), dtype=np.uint8)
     out = est.call(images)
     assert len(out) == 1
+
+    rng = np.random.default_rng(2)
+    det = RetinaFaceDetector(params=convert_retinaface(
+        random_retinaface_state_dict(rng)), device="cpu", top_k=16)
+    faces = det.call(images)
+    assert len(faces) == 1 and faces[0], faces
+    rec = ArcFaceRecognizer(params=convert_arcface(
+        random_arcface_state_dict(rng)), device="cpu")
+    feats = rec.call(list(images), [faces[0][:1]])
+    assert feats[0].shape == (1, 512), feats[0].shape
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
