@@ -25,8 +25,8 @@ recognition of 8 faces a frame with full FaceResNet100. Prints:
    with the most device time, the device's busy share of the call's wall
    time, and the hand-written kernels' launches and device time (pose:
    the fused peak-scan kernels, ``csrc/fused_peaks.cu``, scan and merge,
-   two launches per decode; detection: ``csrc/nms.cu``, one launch per
-   decode).
+   two launches per decode; detection: ``csrc/nms.cu``, mask and sweep,
+   two launches per decode).
 """
 
 import sys
@@ -160,9 +160,9 @@ def main():
           "device time")
 
     profiled(lambda: detection(frames), card, "detection task call",
-             "nms_kernel")
+             ("::mask_kernel(", "::sweep_kernel("))
     profiled(lambda: recognition(list(frames), faces), card,
-             "recognition task call", "")
+             "recognition task call", ())
     return 0
 
 
@@ -230,7 +230,7 @@ def depthwise_ms(model, x):
 def profiled(fn, card, title, match):
     """One call of ``fn`` under torch.profiler: wall, busy share, the ten
     kernels with the most device time, and the kernels whose name
-    contains ``match``."""
+    contains one of the strings ``match``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -252,8 +252,9 @@ def profiled(fn, card, title, match):
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:90]}")
     if match:
-        hits = [e for e in kernels if match in e.key]
-        print(f"  {match}: {sum(e.count for e in hits)} launches, "
+        hits = [e for e in kernels if any(m in e.key for m in match)]
+        print(f"  {' + '.join(match)}: {sum(e.count for e in hits)} "
+              f"launches, "
               f"{sum(e.self_device_time_total for e in hits) / 1e3:.4f} ms "
               "device time", flush=True)
 

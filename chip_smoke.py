@@ -10,7 +10,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build the hand-written kernels with nvcc, one build per source, in
    parallel: terran_tpu_torch/csrc/fused_peaks.cu (the tile scan and the
-   plane merge) and terran_tpu_torch/csrc/nms.cu (greedy suppression);
+   plane merge) and terran_tpu_torch/csrc/nms.cu (the IoU bitmask and the
+   greedy sweep);
 3. hold the peak kernels against their plain PyTorch version on the card, exact
    equality of coords, valid, overflow and scores, on random fields,
    off-grid gaussian bumps, a height and width off the kernel's tile grid,
@@ -21,19 +22,23 @@ Phases (any failure raises, exits nonzero and prints no result line):
    (short side 368) at K=512 and a 132x264 field of 1089 tiles; hold the
    merge kernel alone against ``merge_candidates`` on the scan kernel's
    output; time the call with CUDA events at K=32 and K=128;
-   then hold the NMS kernel against its plain version: all five outputs
-   of ``nms_fixed`` equal (NaNs counted equal) on random boxes (N=8,
-   A=12,740 anchors, K=256), the model's own decoded boxes at the main
-   shape (K = 256, 512, 1024), K = 2048 and 4096, a tie plateau of
-   identical boxes, inf and NaN boxes, no candidate above the threshold,
-   top_k above A and N=1; time it with CUDA events at N=8, K=256 and 1024;
+   then hold the NMS kernels against their plain version: all five
+   outputs of ``nms_fixed`` equal (NaNs counted equal) on random boxes
+   (N=8, A=12,740 anchors, K = 64, 65, 100, 256 and 4096), the model's
+   own decoded boxes at the main shape (K = 256, 512, 1024), K = 2048 and
+   4096 at N=2, a tie plateau of identical boxes, inf and NaN boxes, no
+   candidate above the threshold, survivors only in the last chunk, top_k
+   above A and N=1; hold the mask kernel's words alone against the packed
+   plain IoU bits on the model's boxes at K=1024; time the suppression
+   with CUDA events at N=8, K=256 and 1024, and count the chunks its
+   sweep decides in the busiest image;
 4. the pose main path: the pose task API (``Estimation``) on 8 seeded 1080p
    frames at the default short side 184, full OpenPose with random
    reference-format weights, bf16; the peak kernels' launch count must
    rise; then ``max_peaks=4`` must escalate;
    the detection main path: ``Detection`` on the same frames at the
    default short side 416, full RetinaFace (mnet-0.25) with random
-   weights, bf16; the NMS kernel's launch count must rise;
+   weights, bf16; the NMS kernels' launch count must rise;
    the recognition main path: ``Recognition`` on the same frames, 8 faces
    a frame with finite landmarks, full FaceResNet100, bf16;
 5. float32 with TF32 off: the fused path and the materialised path
@@ -42,7 +47,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
    ArcFace, and the detect step's keep masks on the card equal the CPU's;
 6. ``torch.profiler``: the CUDA kernels of one peak-scan call (at most 2),
    the kernels' device time at K=32 and K=128, and the CUDA kernels of
-   one NMS suppression call (1) with its device time;
+   one NMS suppression call (2: mask and sweep) with each one's device
+   time at K=256 and K=1024;
 7. a JSON line describing the kernels, then the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -239,18 +245,47 @@ def nms_bound_ms(top_boxes, valid, keep, iou_threshold):
     """Least time of the suppression on these inputs, the larger of: boxes
     (16 bytes) and valid flags (1) read once and the keep mask (1) written
     once over HBM; the areas and the IoU tests of :func:`nms_tests` over
-    the float32 rate. Returns (ms, "bytes" or "operations", chain): chain
-    is the most survivors in one image, the number of dependent steps,
-    each ending in a barrier, that the kernel's one block walks; PERF.md
-    names that chain as what bounds this kernel, not the two rates."""
+    the float32 rate. Returns (ms, "bytes" or "operations")."""
     n, k = keep.shape
     tests = float(nms_tests(top_boxes, valid, keep, iou_threshold).sum())
     ops = tests * IOU_OPS + 3 * n * k
     nbytes = n * k * (16 + 1 + 1)
     t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes",
-            int(keep.sum(dim=1).max()))
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_iou_mask(top_boxes, iou_threshold):
+    """The mask kernel alone against ``iou_mask_plain``, the packed bits of
+    ``iou_matrix > threshold`` over j > i: every word the sweep reads (at
+    or right of a row's own chunk) equal. Returns the nonzero words."""
+    import torch
+
+    from terran_tpu_torch.ops import nms
+
+    got = nms.iou_mask(top_boxes, iou_threshold)
+    expected = nms.iou_mask_plain(top_boxes, iou_threshold)
+    idx = torch.arange(top_boxes.shape[1], device=top_boxes.device)
+    read = (torch.arange(got.shape[2], device=got.device)[None, :]
+            >= (idx // nms.WORD)[:, None])
+    if got.shape != expected.shape or not torch.equal(
+            torch.where(read, got, 0), expected):
+        raise AssertionError("mask kernel and iou_mask_plain differ")
+    return int(expected.ne(0).sum())
+
+
+def decided_chunks(keep):
+    """(N,) chunks of 64 candidates that the sweep kernel decides: those
+    with an alive candidate, which are those holding a survivor, since the
+    first alive candidate of a chunk always survives. The rest cost the
+    sweep one barrier each."""
+    import torch
+
+    from terran_tpu_torch.ops.nms import WORD
+
+    n, k = keep.shape
+    padded = torch.nn.functional.pad(keep, (0, -k % WORD))
+    return padded.view(n, -1, WORD).any(dim=2).sum(dim=1)
 
 
 def nms_phase(detector, frames, rng, dev, card):
@@ -287,8 +322,16 @@ def nms_phase(detector, frames, rng, dev, card):
     nonfinite[:, 3::7] = (-np.inf, -np.inf, np.inf, np.inf)
     nonfinite, nf_scores = as_dev(nonfinite, nf_scores)
     small_boxes, small_scores = as_dev(*random_boxes(rng, 3, 100, h, w))
+    # +inf scores sort first and are not valid: the first two chunks of
+    # K=192 hold no valid candidate, so every survivor is in the last one.
+    tail_boxes, tail_scores = as_dev(*random_boxes(rng, 2, 200, h, w))
+    tail_scores[:, :128] = float("inf")
     cases = [
         ("random boxes N=8", rand_boxes, rand_scores, 0.5, 256),
+        ("random boxes N=8 K=64", rand_boxes, rand_scores, 0.5, 64),
+        ("random boxes N=8 K=65", rand_boxes, rand_scores, 0.5, 65),
+        ("random boxes N=8 K=100", rand_boxes, rand_scores, 0.5, 100),
+        ("random boxes N=8 K=4096", rand_boxes, rand_scores, 0.1, 4096),
         ("model boxes K=256", boxes, scores, 0.5, 256),
         ("model boxes K=512", boxes, scores, 0.5, 512),
         ("model boxes K=1024", boxes, scores, 0.5, 1024),
@@ -299,6 +342,8 @@ def nms_phase(detector, frames, rng, dev, card):
         ("inf and NaN boxes", nonfinite, nf_scores, 0.2, 1024),
         ("no candidate above threshold", rand_boxes, rand_scores * 0.4, 0.5,
          256),
+        ("survivors only in the last chunk", tail_boxes, tail_scores, 0.1,
+         192),
         ("top_k above A", small_boxes, small_scores, 0.1, 256),
         ("N=1", boxes[:1], scores[:1], 0.5, 256),
     ]
@@ -320,8 +365,16 @@ def nms_phase(detector, frames, rng, dev, card):
             raise AssertionError("tie plateau: expected one survivor each")
         if label.startswith("no candidate") and keep.any():
             raise AssertionError("a candidate survived below the threshold")
+        if label.startswith("survivors only") and (
+                keep[:, :128].any() or not keep[:, 128:].any(dim=1).all()):
+            raise AssertionError("expected survivors in the last chunk only")
         log(f"NMS kernel == plain: {label} {tuple(b.shape)} K={k}: "
             f"{int(keep.sum())} kept, {int(got[4].sum())} overflowed")
+
+    top = nms.nms_fixed(boxes, scores, 0.4, score_threshold=0.5, top_k=1024)
+    pairs = check_iou_mask(top[0], 0.4)
+    log(f"mask kernel == iou_mask_plain: model boxes K=1024: {pairs} "
+        f"nonzero mask words")
 
     # Times at N=8 on the model's own pre-selected boxes.
     fields = {}
@@ -334,15 +387,18 @@ def nms_phase(detector, frames, rng, dev, card):
                            iters=3, warm=1)
         call_ms = time_ms(lambda: nms.nms_fixed(
             boxes, scores, 0.4, score_threshold=0.5, top_k=k))
-        bound_ms, bound_by, chain = nms_bound_ms(top_boxes, valid, keep, 0.4)
-        log(f"NMS timing, N=8, K={k} ({card}): suppress (kernel call) "
+        bound_ms, bound_by = nms_bound_ms(top_boxes, valid, keep, 0.4)
+        decided = int(decided_chunks(keep).max())
+        survivors = int(keep.sum(dim=1).max())
+        log(f"NMS timing, N=8, K={k} ({card}): suppress (2 kernels) "
             f"{ms:.4f} ms, plain version {plain_ms:.4f} ms, whole nms_fixed "
-            f"{call_ms:.4f} ms; {int(keep.sum())} kept; bound "
-            f"{bound_ms:.6f} ms ({bound_by}); chain of {chain} dependent "
-            f"steps in the busiest block ({ms * 1e3 / max(chain, 1):.2f} us a step)")
+            f"{call_ms:.4f} ms; {int(keep.sum())} kept, {survivors} in the "
+            f"busiest image; bound {bound_ms:.6f} ms ({bound_by}); sweep "
+            f"chain in the busiest image: {decided} of {-(-k // nms.WORD)} "
+            f"chunks decided")
         fields[k] = {"ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "chain_steps": chain, "kept": int(keep.sum())}
+                     "chain_steps": decided, "kept": int(keep.sum())}
     return fields, max_abs_err, (boxes, scores)
 
 
@@ -415,7 +471,8 @@ def synthetic_faces(rng, frames):
 
 def detection_phase(rf_params, frames, card, device=None):
     """The detection task API on ``frames``, bf16: times, escalations,
-    faces and the result contract. Returns the NMS kernel's launches."""
+    faces and the result contract. Returns the NMS ``suppress`` calls
+    (two kernel launches each)."""
     import numpy as np
     import torch
 
@@ -427,17 +484,17 @@ def detection_phase(rf_params, frames, card, device=None):
         raise AssertionError("the detection path must run bf16")
     nms.suppress.launches = 0
     faces, warm_s, det_ms = timed_calls(lambda: detection(frames))
-    nms_launches = nms.suppress.launches
-    if detection.device.type == "cuda" and nms_launches < 1 + TIMED_CALLS:
+    nms_calls = nms.suppress.launches
+    if detection.device.type == "cuda" and nms_calls < 1 + TIMED_CALLS:
         raise AssertionError("the detection path did not launch the NMS "
-                             "kernel")
+                             "kernels")
     det_escalations = detection.model.escalation_count
     log(f"detection path ({card}): batch {len(frames)} x "
         f"{frames.shape[1]}x{frames.shape[2]}, short side "
         f"{DETECT_SHAPE[0]}, bf16: warm call {warm_s:.3f} s, "
         f"{det_ms:.2f} ms/batch median of {TIMED_CALLS} "
-        f"({len(frames) * 1e3 / det_ms:.2f} frames/s); NMS kernel launches "
-        f"{nms_launches}; escalations {det_escalations} over "
+        f"({len(frames) * 1e3 / det_ms:.2f} frames/s); NMS suppress calls "
+        f"{nms_calls} (2 kernels each); escalations {det_escalations} over "
         f"{1 + TIMED_CALLS} calls; faces per frame {[len(f) for f in faces]}")
     assert len(faces) == len(frames)
     for frame_faces in faces:
@@ -450,7 +507,7 @@ def detection_phase(rf_params, frames, card, device=None):
             assert face["landmarks"].shape == (5, 2)
             assert face["landmarks"].dtype == np.int32
             assert np.isfinite(face["score"])
-    return nms_launches
+    return nms_calls
 
 
 def recognition_phase(arc_params, frames, rng, card, device=None):
@@ -577,7 +634,7 @@ def main():
     nvcc_s = ", ".join(f"{name} {cuda_build.build_seconds.get(name, 0.0):.2f} s"
                        for name in ("fused_peaks.cu", "nms.cu"))
     log(f"build: fused_peaks.cu (scan + merge kernels) and nms.cu "
-        f"(suppression kernel) in {time.perf_counter() - start:.2f} s "
+        f"(mask + sweep kernels) in {time.perf_counter() - start:.2f} s "
         f"(nvcc {nvcc_s}; 0 = cached)")
 
     # 3. Kernel vs plain version on the card.
@@ -736,7 +793,7 @@ def main():
         raise AssertionError("max_peaks=4 did not escalate")
     log(f"max_peaks=4: {small.model.escalation_count} escalation(s)")
 
-    nms_launches = detection_phase(rf_params, frames, card)
+    nms_calls = detection_phase(rf_params, frames, card)
     recognition_phase(arc_params, frames, face_rng, card)
 
     # 5. float32, TF32 off: fused vs materialised, card vs CPU.
@@ -803,17 +860,24 @@ def main():
                         for name, t in sorted(names.items()))
             + ")")
 
-    # One suppression call at N=8, K=256 on the model's pre-selected boxes.
-    top = nms.nms_fixed(*model_boxes, 0.4, score_threshold=0.5, top_k=256)
-    valid = torch.isfinite(top[1])
-    nms_kernels, nms_kernel_ms, names = profile_call(
-        lambda: nms.suppress(top[0], valid, 0.4), 20)
-    log(f"CUDA kernels in one NMS suppress call: {nms_kernels:g} "
-        f"({', '.join(sorted(names))}); device time {nms_kernel_ms:.4f} ms "
-        f"a call at N=8, K=256 ({card})")
-    if nms_kernels != 1:
-        raise AssertionError(f"{nms_kernels} CUDA kernels in one suppress "
-                             "call, expected 1")
+    # Suppression calls at N=8, K=256 and 1024 on the model's pre-selected
+    # boxes: two kernels a call, each timed.
+    nms_kernel_ms = {}
+    for k in (256, 1024):
+        top = nms.nms_fixed(*model_boxes, 0.4, score_threshold=0.5, top_k=k)
+        valid = torch.isfinite(top[1])
+        nms_kernels, total, names = profile_call(
+            lambda: nms.suppress(top[0], valid, 0.4), 20)
+        log(f"CUDA kernels in one NMS suppress call at N=8, K={k}: "
+            f"{nms_kernels:g}; device time {total:.4f} ms a call ("
+            + ", ".join(f"{name} {t:.4f} ms"
+                        for name, t in sorted(names.items()))
+            + f") ({card})")
+        if nms_kernels != 2 or set(names) != {"mask_kernel", "sweep_kernel"}:
+            raise AssertionError(f"{nms_kernels} CUDA kernels in one "
+                                 f"suppress call ({sorted(names)}), expected "
+                                 "mask_kernel and sweep_kernel")
+        nms_kernel_ms[k] = dict(names, total=total)
 
     # 7. Results.
     log(json.dumps({"kernels": [{
@@ -839,19 +903,27 @@ def main():
         "route": "cuda",
         "source": "terran_tpu_torch/csrc/nms.cu",
         "replaces": "terran_tpu/ops/nms.py:82",
-        "launches": nms_launches,
+        "launches": 2 * nms_calls,
+        "calls": nms_calls,
         "max_abs_err": nms_err,
         "exact": nms_err == 0.0,
         "ms": nms_fields[256]["ms"],
-        "kernel_ms": nms_kernel_ms,
+        "kernel_ms": nms_kernel_ms[256]["total"],
+        "mask_kernel_ms": nms_kernel_ms[256]["mask_kernel"],
+        "sweep_kernel_ms": nms_kernel_ms[256]["sweep_kernel"],
         "ms_k1024": nms_fields[1024]["ms"],
+        "kernel_ms_k1024": nms_kernel_ms[1024]["total"],
+        "mask_kernel_ms_k1024": nms_kernel_ms[1024]["mask_kernel"],
+        "sweep_kernel_ms_k1024": nms_kernel_ms[1024]["sweep_kernel"],
         "nms_fixed_ms": nms_fields[256]["call_ms"],
         "kernels_per_call": nms_kernels,
         "plain_ms": nms_fields[256]["plain_ms"],
         "plain_ms_k1024": nms_fields[1024]["plain_ms"],
         "bound_ms": nms_fields[256]["bound_ms"],
+        "bound_ms_k1024": nms_fields[1024]["bound_ms"],
         "bound_by": nms_fields[256]["bound_by"],
         "chain_steps": nms_fields[256]["chain_steps"],
+        "chain_steps_k1024": nms_fields[1024]["chain_steps"],
         "library_ms": None,
         "card": card,
     }]}))

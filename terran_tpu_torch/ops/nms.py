@@ -6,10 +6,13 @@ keep mask. The IoU and the greedy order match torchvision's NMS, which
 the reference detector calls, so the kept set equals the reference's
 whenever at most K candidates clear the score threshold.
 
-The suppression is :func:`suppress`: for a CUDA tensor one launch of
-``csrc/nms.cu`` (built by ``nvcc`` at first use), for a CPU tensor its
-plain version, :func:`suppress_plain`, which is the reference's
-``fori_loop`` body written out.
+The suppression is :func:`suppress`: for a CUDA tensor two launches of
+``csrc/nms.cu`` (built by ``nvcc`` at first use), the IoU bitmask of
+every pair in 64-candidate tiles (:func:`iou_mask` launches it alone;
+its plain version is :func:`iou_mask_plain`), then the greedy sweep over
+it in 64-candidate chunks; for a CPU tensor its plain version,
+:func:`suppress_plain`, which is the reference's ``fori_loop`` body
+written out.
 """
 
 import ctypes
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 
 _SOURCE = "nms.cu"
+WORD = 64  # candidates per mask word and sweep chunk (csrc/nms.cu: kTile)
 _lib = None
 
 
@@ -53,55 +57,117 @@ def suppress_plain(boxes, valid, iou_threshold):
     return ~suppressed & valid
 
 
+def _pack(bits):
+    """(..., K) bool -> (..., ceil(K / 64)) int64 words: bit b of word w is
+    bits[..., 64 w + b]; bits past K are 0."""
+    k = bits.shape[-1]
+    words = -(-k // WORD)
+    bits = torch.nn.functional.pad(bits.to(torch.int64),
+                                   (0, words * WORD - k))
+    weights = torch.from_numpy(
+        (np.uint64(1) << np.arange(WORD, dtype=np.uint64)).view(np.int64)
+    ).to(bits.device)
+    return (bits.reshape(bits.shape[:-1] + (words, WORD)) * weights).sum(-1)
+
+
+def iou_mask_plain(boxes, iou_threshold):
+    """The mask kernel's plain version: (N, K, 4) boxes -> (N, K, W) int64
+    words, W = ceil(K / 64); bit b of mask[n, i, w] is set iff j = 64 w + b
+    has j > i and IoU(i, j) above the threshold."""
+    idx = torch.arange(boxes.shape[1], device=boxes.device)
+    over = iou_matrix(boxes, boxes) > iou_threshold
+    return _pack(over & (idx[None, :] > idx[:, None]))
+
+
 def _library():
     global _lib
     if _lib is None:
         from terran_tpu_torch.utils.cuda_build import load_library
 
         lib = load_library(_SOURCE)
-        lib.nms_suppress.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.nms_suppress.restype = ctypes.c_int
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.nms_mask.argtypes = [ptr, i32, i32, f32, ptr, ptr]
+        lib.nms_suppress.argtypes = [ptr, ptr, i32, i32, f32, ptr, ptr, ptr]
+        for fn in (lib.nms_mask, lib.nms_suppress):
+            fn.restype = i32
         _lib = lib
     return _lib
 
 
-def suppress(boxes, valid, iou_threshold):
-    """:func:`suppress_plain` for a CPU tensor; one launch of the CUDA
-    kernel for a CUDA tensor."""
+def _on_cpu(boxes, valid=None):
+    """Raise on inputs that no version takes; True for CPU tensors (the
+    plain versions), False for CUDA ones (the kernels)."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"expected (N, K, 4) boxes, got {tuple(boxes.shape)}")
-    if tuple(valid.shape) != tuple(boxes.shape[:2]):
+    if valid is not None and tuple(valid.shape) != tuple(boxes.shape[:2]):
         raise ValueError(f"valid {tuple(valid.shape)} does not match boxes "
                          f"{tuple(boxes.shape)}")
     if boxes.device.type == "cpu":
+        return True
+    if boxes.device.type != "cuda" or (valid is not None
+                                       and valid.device != boxes.device):
+        raise ValueError(f"no NMS kernel for boxes on {boxes.device}"
+                         + ("" if valid is None
+                            else f" and valid on {valid.device}"))
+    return False
+
+
+def _launch(name, boxes, *args):
+    """``lib.<name>`` on ``args`` and the current stream of ``boxes``'s
+    card; raises on its CUDA error."""
+    with torch.cuda.device(boxes.device):
+        err = getattr(_library(), name)(
+            *args, torch._C._cuda_getCurrentRawStream(boxes.device.index))
+    if err != 0:
+        raise RuntimeError(f"NMS {name} failed at N={boxes.shape[0]}, "
+                           f"K={boxes.shape[1]}: CUDA error {err}")
+
+
+def _mask_buffer(n, k, device):
+    """The mask kernel's output, (n, W, 64 W) int64, column-major: mask[n,
+    w, i] is row i's word w, so that a chunk's rows of one column are 512
+    contiguous bytes."""
+    words = -(-k // WORD)
+    return torch.empty((n, words, words * WORD), dtype=torch.int64,
+                       device=device)
+
+
+def iou_mask(boxes, iou_threshold):
+    """:func:`iou_mask_plain` for a CPU tensor; the mask kernel alone for a
+    CUDA tensor, so that it can be checked apart. The kernel leaves the
+    words left of a row's own chunk (w < i // 64) unset: the sweep never
+    reads them."""
+    if _on_cpu(boxes):
+        return iou_mask_plain(boxes, iou_threshold)
+    n, k = boxes.shape[:2]
+    mask = _mask_buffer(n, k, boxes.device)
+    if n * k:
+        boxes = boxes.to(torch.float32).contiguous()
+        _launch("nms_mask", boxes, boxes.data_ptr(), n, k,
+                float(iou_threshold), mask.data_ptr())
+    return mask[..., :k].transpose(1, 2)
+
+
+def suppress(boxes, valid, iou_threshold):
+    """:func:`suppress_plain` for a CPU tensor; for a CUDA tensor the mask
+    kernel, then the sweep kernel."""
+    if _on_cpu(boxes, valid):
         return suppress_plain(boxes, valid, iou_threshold)
-    if boxes.device.type != "cuda" or valid.device != boxes.device:
-        raise ValueError(f"no NMS kernel for boxes on {boxes.device} and "
-                         f"valid on {valid.device}")
     n, k = valid.shape
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
     if n * k == 0:
         return keep
-    lib = _library()
     boxes = boxes.to(torch.float32).contiguous()
     valid = valid.to(torch.bool).contiguous()
-    with torch.cuda.device(boxes.device):
-        err = lib.nms_suppress(
-            boxes.data_ptr(), valid.data_ptr(), n, k, float(iou_threshold),
-            keep.data_ptr(),
-            torch._C._cuda_getCurrentRawStream(boxes.device.index),
-        )
-    if err != 0:
-        raise RuntimeError(f"NMS kernel launch failed at N={n}, K={k}: "
-                           f"CUDA error {err}")
+    mask = _mask_buffer(n, k, boxes.device)
+    _launch("nms_suppress", boxes, boxes.data_ptr(), valid.data_ptr(), n, k,
+            float(iou_threshold), mask.data_ptr(), keep.data_ptr())
     suppress.launches += 1
     return keep
 
 
-# Kernel launches since the count was last set to 0.
+# Calls of suppress that launched the two kernels since the count was
+# last set to 0.
 suppress.launches = 0
 
 
