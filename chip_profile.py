@@ -26,7 +26,14 @@ recognition of 8 faces a frame with full FaceResNet100. Prints:
    time, and the hand-written kernels' launches and device time (pose:
    the fused peak-scan kernels, ``csrc/fused_peaks.cu``, scan and merge,
    two launches per decode; detection: ``csrc/nms.cu``, mask and sweep,
-   two launches per decode).
+   two launches per decode);
+5. the perception pipeline at ``chip_smoke.py``'s configuration
+   (bench.py's: top_k 64, max_faces 8, max_peaks 16, depth 2): the
+   ``StageTimer`` host times of one ``process_stream`` sweep over 8
+   batches, before any profiler; then, last, under ``torch.profiler``,
+   the device's busy share of one sweep and, for one ``process_batch``,
+   its kernel launches, the ten kernels with the most device time and the
+   hand-written kernels' launches and device time.
 """
 
 import sys
@@ -134,6 +141,8 @@ def main():
     detection = detection_stages(rf_params, frames, card)
     recognition, faces = recognition_stages(arc_params, frames, face_rng,
                                             card)
+    pipe, batches = pipeline_stages((rf_params, arc_params, state_dict),
+                                    card)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -163,7 +172,54 @@ def main():
              ("::mask_kernel(", "::sweep_kernel("))
     profiled(lambda: recognition(list(frames), faces), card,
              "recognition task call", ())
+    profiled(lambda: sweep(pipe, batches), card,
+             f"pipeline sweep of {len(batches)} batches", ())
+    profiled(lambda: pipe.process_batch(batches[0]), card,
+             "pipeline process_batch",
+             ("::scan_kernel(", "::merge_kernel(", "::mask_kernel(",
+              "::sweep_kernel("))
     return 0
+
+
+def sweep(pipe, batches):
+    from chip_smoke import PIPE_DEPTH
+
+    for _ in pipe.process_stream(batches, depth=PIPE_DEPTH):
+        pass
+
+
+def pipeline_stages(params, card):
+    """The pipeline at chip_smoke.py's configuration, warmed, then the
+    StageTimer's host times of one sweep. Returns (pipeline, batches)."""
+    import numpy as np
+
+    from chip_smoke import BATCH, PIPE_BATCHES, PIPE_DEPTH, pipeline_kwargs
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+    from terran_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    pipe = PerceptionPipeline(**pipeline_kwargs(params, timer=timer))
+    rng = np.random.default_rng(SEED + 2)
+    batches = [rng.integers(0, 255, (BATCH,) + FRAME + (3,), dtype=np.uint8)
+               for _ in range(PIPE_BATCHES)]
+    pipe.warmup(BATCH, *FRAME)
+    pipe.process_batch(batches[0])
+    sweep(pipe, batches[:2])
+    timer.reset()
+    start = time.perf_counter()
+    sweep(pipe, batches)
+    wall_ms = 1e3 * (time.perf_counter() - start)
+    print(f"pipeline sweep ({card}): {PIPE_BATCHES} batches x {BATCH} x "
+          f"{FRAME[0]}x{FRAME[1]}, depth {PIPE_DEPTH}: wall {wall_ms:.2f} ms "
+          f"({wall_ms / PIPE_BATCHES:.2f} ms/batch); StageTimer, host wall "
+          "time (a dispatch span is the enqueue, not the device time):",
+          flush=True)
+    for name, total in timer.times.items():
+        calls = timer.counts[name]
+        print(f"  {name:20s} {1e3 * total / calls:9.4f} ms mean x {calls} "
+              f"= {1e3 * total:9.4f} ms")
+    pipe.timer = None
+    return pipe, batches
 
 
 def timer():
@@ -257,6 +313,9 @@ def profiled(fn, card, title, match):
               f"launches, "
               f"{sum(e.self_device_time_total for e in hits) / 1e3:.4f} ms "
               "device time", flush=True)
+        for e in hits:
+            print(f"    {e.count:3d}x {e.self_device_time_total / 1e3:.4f} "
+                  f"ms  {e.key[:60]}", flush=True)
 
 
 def detection_stages(rf_params, frames, card):

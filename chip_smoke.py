@@ -17,39 +17,54 @@ Phases (any failure raises, exits nonzero and prints no result line):
    off-grid gaussian bumps, a height and width off the kernel's tile grid,
    exact-tie plateaus (one of them a whole 23x40 plane, every interior
    pixel a peak, at K=128 and K=4096), batch dims, the model's own
-   heatmaps at the main path's shape at K = 0, 1, 32, 37 and 128, the
+   heatmaps at the main path's shape at K = 0, 1, 16, 32, 37 and 128, the
    strided [..., :18] view of the model's 19 channels, a 46x80 field
    (short side 368) at K=512 and a 132x264 field of 1089 tiles; hold the
    merge kernel alone against ``merge_candidates`` on the scan kernel's
-   output; time the call with CUDA events at K=32 and K=128;
+   output; time the call with CUDA events at K=16, 32 and 128;
    then hold the NMS kernels against their plain version: all five
    outputs of ``nms_fixed`` equal (NaNs counted equal) on random boxes
    (N=8, A=12,740 anchors, K = 64, 65, 100, 256 and 4096), the model's
-   own decoded boxes at the main shape (K = 256, 512, 1024), K = 2048 and
+   own decoded boxes at the main shape (K = 64, 256, 512, 1024), K = 2048 and
    4096 at N=2, a tie plateau of identical boxes, inf and NaN boxes, no
    candidate above the threshold, survivors only in the last chunk, top_k
    above A and N=1; hold the mask kernel's words alone against the packed
    plain IoU bits on the model's boxes at K=1024; time the suppression
-   with CUDA events at N=8, K=256 and 1024, and count the chunks its
+   with CUDA events at N=8, K=64, 256 and 1024, and count the chunks its
    sweep decides in the busiest image;
-4. the pose main path: the pose task API (``Estimation``) on 8 seeded 1080p
+4. the pose task API (``Estimation``) on 8 seeded 1080p
    frames at the default short side 184, full OpenPose with random
    reference-format weights, bf16; the peak kernels' launch count must
    rise; then ``max_peaks=4`` must escalate;
-   the detection main path: ``Detection`` on the same frames at the
+   the detection task API: ``Detection`` on the same frames at the
    default short side 416, full RetinaFace (mnet-0.25) with random
    weights, bf16; the NMS kernels' launch count must rise;
-   the recognition main path: ``Recognition`` on the same frames, 8 faces
+   the recognition task API: ``Recognition`` on the same frames, 8 faces
    a frame with finite landmarks, full FaceResNet100, bf16;
+   the main path, ``PerceptionPipeline`` at bench.py's configuration
+   (PIPE_CONFIG: top_k 64, max_faces 8, max_peaks 16, depth 2, no
+   escalation) with the same three models: ``warmup``, one
+   ``process_batch``, one ``dispatch_batch`` on resident frames that must
+   make no synchronizing call (``torch.cuda.set_sync_debug_mode("error")``),
+   then 3 timed ``process_stream`` sweeps over 8 seeded
+   batches of 8 1080p frames, each result's shapes checked; both kernels
+   must launch on every batch of the sweeps (counts set to 0 before them);
+   it prints frames/s, the ``StageTimer`` summary and the launches per
+   batch; then ``max_escalations=2`` on 2 frames must raise every
+   escalation counter (detect, pose, embed);
 5. float32 with TF32 off: the fused path and the materialised path
    (``fused_peaks='off'``) give equal keypoints, and the card's forward
    agrees with the CPU's on a small input; the same for RetinaFace and
    ArcFace, and the detect step's keep masks on the card equal the CPU's;
+   the pipeline's ``process_stream`` equals its ``process_batch`` on the
+   card, and the card's pipeline agrees with a CPU pipeline on a small
+   input (``pipeline_float32_phase`` states the tolerances);
 6. ``torch.profiler``: the CUDA kernels of one peak-scan call (at most 2),
-   the kernels' device time at K=32 and K=128, and the CUDA kernels of
+   the kernels' device time at K=16, 32 and 128, and the CUDA kernels of
    one NMS suppression call (2: mask and sweep) with each one's device
-   time at K=256 and K=1024;
-7. a JSON line describing the kernels, then the result line.
+   time at K=64, 256 and 1024;
+7. JSON lines describing the pipeline and the kernels, then the card's
+   line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -75,6 +90,14 @@ PEAK_BYTES = 3.35e12
 DETECT_SHAPE = (416, 739)  # 1080p at the default short side 416
 ANCHORS = 12740            # RetinaFace anchors at 416x739
 FACES_PER_FRAME = 8
+# The perception pipeline at bench.py's configuration (bench.py:430-442,
+# 485): batch 8 of 1080p, top_k 64, max_faces 8, max_peaks 16, depth 2,
+# no escalation, timed over 3 sweeps of 8 batches.
+PIPE_CONFIG = {"top_k": 64, "max_faces": 8, "max_peaks": 16,
+               "max_escalations": 0}
+PIPE_BATCHES = 8
+PIPE_SWEEPS = 3
+PIPE_DEPTH = 2
 # float32 operations of one IoU test in csrc/nms.cu: 2 max, 2 min, 2
 # subtractions, 2 clamps, 1 product, 2 additions/subtractions, 1 division,
 # 1 compare.
@@ -332,6 +355,7 @@ def nms_phase(detector, frames, rng, dev, card):
         ("random boxes N=8 K=65", rand_boxes, rand_scores, 0.5, 65),
         ("random boxes N=8 K=100", rand_boxes, rand_scores, 0.5, 100),
         ("random boxes N=8 K=4096", rand_boxes, rand_scores, 0.1, 4096),
+        ("model boxes K=64 (the pipeline's)", boxes, scores, 0.5, 64),
         ("model boxes K=256", boxes, scores, 0.5, 256),
         ("model boxes K=512", boxes, scores, 0.5, 512),
         ("model boxes K=1024", boxes, scores, 0.5, 1024),
@@ -378,7 +402,7 @@ def nms_phase(detector, frames, rng, dev, card):
 
     # Times at N=8 on the model's own pre-selected boxes.
     fields = {}
-    for k in (256, 1024):
+    for k in (PIPE_CONFIG["top_k"], 256, 1024):
         top_boxes, top_scores, keep, _, _ = nms.nms_fixed(
             boxes, scores, 0.4, score_threshold=0.5, top_k=k)
         valid = torch.isfinite(top_scores)
@@ -507,7 +531,7 @@ def detection_phase(rf_params, frames, card, device=None):
             assert face["landmarks"].shape == (5, 2)
             assert face["landmarks"].dtype == np.int32
             assert np.isfinite(face["score"])
-    return nms_calls
+    return nms_calls, det_ms
 
 
 def recognition_phase(arc_params, frames, rng, card, device=None):
@@ -535,6 +559,7 @@ def recognition_phase(arc_params, frames, rng, card, device=None):
         norms = np.linalg.norm(frame_feats, axis=1)
         if not np.allclose(norms, 1.0, rtol=1e-5):
             raise AssertionError(f"embeddings are not unit vectors: {norms}")
+    return rec_ms
 
 
 def face_float32_phase(rf_params, arc_params, rng, dev):
@@ -592,6 +617,232 @@ def face_float32_phase(rf_params, arc_params, rng, dev):
                              f"{err}")
     log(f"card vs CPU float32 ArcFace features: max abs error {err:.2e} "
         f"(largest feature {float(ref.abs().max()):.2f})")
+
+
+def pipeline_kwargs(params, **overrides):
+    det, rec, pose = params
+    return dict(PIPE_CONFIG, det_params=det, rec_params=rec,
+                pose_params=pose, **overrides)
+
+
+def pipeline_phase(params, card, task_ms):
+    """The perception pipeline at bench.py's configuration, bf16: warmup,
+    one batch, then PIPE_SWEEPS timed ``process_stream`` sweeps over
+    PIPE_BATCHES seeded batches, with both kernels' launches counted over
+    the sweeps; then an escalating run that must raise every escalation
+    counter. Returns the pipeline's fields for the result lines."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+    from terran_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    pipe = PerceptionPipeline(**pipeline_kwargs(params, timer=timer))
+    for model in (pipe.det_model, pipe.rec_model, pipe.pose_model):
+        if model.compute_dtype != torch.bfloat16:
+            raise AssertionError("the pipeline must run bf16")
+    rng = np.random.default_rng(SEED + 2)
+    batches = [rng.integers(0, 255, (BATCH,) + FRAME + (3,), dtype=np.uint8)
+               for _ in range(PIPE_BATCHES)]
+    start = time.perf_counter()
+    programs = pipe.warmup(BATCH, *FRAME)
+    warm_s = time.perf_counter() - start
+    out = pipe.process_batch(batches[0])
+    check_pipeline_result(out, BATCH, PIPE_CONFIG)
+    # Enqueueing a batch must not wait for the card, or process_stream
+    # cannot overlap one batch's host stages with the next one's compute.
+    frames_dev = pipe.put_frames(batches[0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dispatched = pipe.dispatch_batch(frames_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check_pipeline_result(pipe.finalize_batch(*dispatched), BATCH,
+                          PIPE_CONFIG)
+    for _ in pipe.process_stream(batches[:2], depth=PIPE_DEPTH):
+        pass  # ramps the uploader thread and queues, as bench.py does
+
+    timer.reset()
+    fp.find_peaks_fused.launches = 0
+    nms.suppress.launches = 0
+    fps = []
+    for _ in range(PIPE_SWEEPS):
+        start = time.perf_counter()
+        outs = list(pipe.process_stream(batches, depth=PIPE_DEPTH))
+        fps.append(BATCH * PIPE_BATCHES / (time.perf_counter() - start))
+        for out in outs:
+            check_pipeline_result(out, BATCH, PIPE_CONFIG)
+    swept = PIPE_SWEEPS * PIPE_BATCHES
+    launches = {"fused_peaks": fp.find_peaks_fused.launches,
+                "nms": 2 * nms.suppress.launches}
+    # Both kernels on every batch: a peak scan (scan + merge) and an NMS
+    # suppression (mask + sweep) each.
+    for name, count in launches.items():
+        if count < 2 * swept:
+            raise AssertionError(f"the pipeline launched {name}'s kernels "
+                                 f"{count} times over {swept} batches")
+    fps_median = sorted(fps)[len(fps) // 2]
+    batch_ms = BATCH * 1e3 / fps_median
+    summary = timer.summary()
+    log(f"pipeline ({card}): {PIPE_SWEEPS} process_stream sweeps of "
+        f"{PIPE_BATCHES} batches x {BATCH} x {FRAME[0]}x{FRAME[1]}, depth "
+        f"{PIPE_DEPTH}, {PIPE_CONFIG}, bf16: warmup {programs} programs in "
+        f"{warm_s:.3f} s; frames/s per sweep "
+        + ", ".join(f"{f:.2f}" for f in fps)
+        + f"; median {fps_median:.2f} frames/s = {batch_ms:.2f} ms/batch, "
+        f"against {sum(task_ms.values()):.2f} ms/batch for the three task "
+        f"APIs in this run ({', '.join(f'{k} {v:.2f}' for k, v in task_ms.items())}"
+        f"); kernel launches per batch: fused_peaks "
+        f"{launches['fused_peaks'] / swept:g}, nms {launches['nms'] / swept:g}")
+    log("pipeline stage timer (host wall time, the sweeps): "
+        + json.dumps(summary))
+
+    esc = PerceptionPipeline(**pipeline_kwargs(params, max_escalations=2))
+    esc_out = esc.process_batch(batches[1][:2])
+    if min(esc.escalations.values()) < 1:
+        raise AssertionError(f"max_escalations=2: not every escalation "
+                             f"fired: {esc.escalations}")
+    log(f"pipeline max_escalations=2 on 2 frames: escalations "
+        f"{esc.escalations}, boxes {esc_out['boxes'].shape}, embeddings "
+        f"{esc_out['embeddings'].shape}")
+    return {"fps": fps, "fps_median": fps_median, "batch_ms": batch_ms,
+            "warmup_programs": programs, "warmup_s": warm_s,
+            "batches": swept, "launches": launches, "stages": summary,
+            "task_ms": task_ms, "escalations": esc.escalations}
+
+
+def check_pipeline_result(out, n, config):
+    """The pipeline's result contract at its configuration, no escalation:
+    int32 boxes (n, top_k, 4), unit or zero embeddings (n, max_faces,
+    512), n pose lists of in-frame keypoints."""
+    import numpy as np
+
+    k, faces = config["top_k"], config["max_faces"]
+    if out["boxes"].shape != (n, k, 4) or out["boxes"].dtype != np.int32:
+        raise AssertionError(f"boxes {out['boxes'].shape} "
+                             f"{out['boxes'].dtype}")
+    if out["landmarks"].shape != (n, k, 5, 2):
+        raise AssertionError(f"landmarks {out['landmarks'].shape}")
+    emb, mask = out["embeddings"], out["embeddings_mask"]
+    if emb.shape != (n, faces, 512) or mask.shape != (n, faces):
+        raise AssertionError(f"embeddings {emb.shape}")
+    norms = np.linalg.norm(emb, axis=-1)
+    if not (np.allclose(norms[mask], 1.0, rtol=1e-3)
+            and (norms[~mask] == 0).all()):
+        raise AssertionError("embeddings are not unit vectors where valid "
+                             "and zero elsewhere")
+    if not np.isfinite(out["scores"][out["mask"]]).all():
+        raise AssertionError("non-finite scores of kept faces")
+    if len(out["poses"]) != n:
+        raise AssertionError(f"{len(out['poses'])} pose lists for {n} frames")
+    for people in out["poses"]:
+        for person in people:
+            kp = person["keypoints"]
+            if kp.shape != (18, 3) or kp.dtype != np.int32:
+                raise AssertionError(f"keypoints {kp.shape} {kp.dtype}")
+
+
+def pipeline_float32_phase(params, rng, dev, card):
+    """float32, TF32 off, deterministic cuDNN: ``process_stream`` equals
+    ``process_batch`` on the card, and the card's pipeline agrees with a
+    CPU pipeline on a small input. Tolerances: keep masks, overflow flags
+    and embedding masks equal; kept boxes and landmarks within one count;
+    kept scores within 1e-4; embeddings at cosine > 0.999; the pose peak
+    tables (the peak kernels' output) matched within one upsampled pixel
+    and 1e-4 of score, with at most 2% of the peaks unmatched (a local
+    maximum whose neighbour differs by float32 rounding can move), and
+    the same humans with the same keypoints."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+
+    pipe = PerceptionPipeline(**pipeline_kwargs(
+        params, compute_dtype=torch.float32))
+    batches = [rng.integers(0, 255, (2,) + FRAME + (3,), dtype=np.uint8)
+               for _ in range(3)]
+    streamed = list(pipe.process_stream(batches, depth=PIPE_DEPTH))
+    for frames, got in zip(batches, streamed):
+        expected = pipe.process_batch(frames)
+        for key, value in expected.items():
+            if key == "poses":
+                same = [[p["keypoints"].tolist() for p in f] for f in value
+                        ] == [[p["keypoints"].tolist() for p in f]
+                              for f in got[key]]
+            else:
+                same = np.array_equal(got[key], value)
+            if not same:
+                raise AssertionError(f"process_stream and process_batch "
+                                     f"differ in {key}")
+    log(f"pipeline float32 on the card: process_stream == process_batch on "
+        f"3 batches x 2 x {FRAME[0]}x{FRAME[1]} (every output, "
+        f"{sum(int(o['mask'].sum()) for o in streamed)} faces)")
+
+    small = dict(top_k=16, max_faces=4, max_peaks=8, det_short_side=96,
+                 pose_short_side=96, compute_dtype=torch.float32)
+    pipes = {d: PerceptionPipeline(**pipeline_kwargs(params, device=d,
+                                                     **small))
+             for d in (dev, "cpu")}
+    frames = rng.integers(0, 255, (2, 96, 128, 3), dtype=np.uint8)
+    got, ref = (pipes[d].process_batch(frames) for d in (dev, "cpu"))
+    for key in ("mask", "det_overflow", "embeddings_mask", "pose_overflow"):
+        if not np.array_equal(got[key], ref[key]):
+            raise AssertionError(f"card vs CPU pipeline: {key} differs")
+    mask, valid = ref["mask"], ref["embeddings_mask"]
+    box_err = max(int(np.abs(got[k][mask] - ref[k][mask]).max())
+                  for k in ("boxes", "landmarks"))
+    score_err = float(np.abs(got["scores"][mask] - ref["scores"][mask]).max())
+    cos = float((got["embeddings"][valid] * ref["embeddings"][valid]
+                 ).sum(-1).min())
+    if box_err > 1 or score_err > 1e-4 or not cos > 0.999:
+        raise AssertionError(f"card vs CPU pipeline: boxes {box_err} counts, "
+                             f"scores {score_err}, cosine {cos}")
+    peaks = {}
+    for d in (dev, "cpu"):
+        pipe_d = pipes[d]
+        with torch.inference_mode():
+            frames_d = pipe_d.put_frames(frames)
+            peaks[d] = pipe_d._pose_detect_fn(96, 128)(frames_d)[0].cpu(
+                ).numpy()
+    matched, unmatched, total = peak_agreement(peaks[dev], peaks["cpu"])
+    if unmatched > 0.02 * total:
+        raise AssertionError(f"card vs CPU peaks: {unmatched} of {total} "
+                             "unmatched")
+    same_people = [[p["keypoints"].tolist() for p in f] for f in got["poses"]
+                   ] == [[p["keypoints"].tolist() for p in f]
+                         for f in ref["poses"]]
+    if not same_people:
+        raise AssertionError("card vs CPU pipeline: humans differ")
+    log(f"card vs CPU float32 pipeline (2 x 96x128, det and pose short side "
+        f"96): masks equal ({int(mask.sum())} faces, {int(valid.sum())} "
+        f"embedded), boxes/landmarks within {box_err} count, scores within "
+        f"{score_err:.2e}, embedding cosine >= {cos:.6f}; peaks: {matched} of "
+        f"{total} matched, {unmatched} unmatched; "
+        f"{sum(map(len, ref['poses']))} humans, keypoints equal ({card})")
+
+
+def peak_agreement(got, ref):
+    """(matched, unmatched, total) valid peaks between two (N, P, K, 5)
+    peak tables: a peak matches one of the same image and part within one
+    pixel and 1e-4 of score."""
+    matched = unmatched = 0
+    for g_part, r_part in zip(got.reshape(-1, *got.shape[-2:]),
+                              ref.reshape(-1, *ref.shape[-2:])):
+        g = g_part[g_part[:, 3] > 0.5]
+        r = r_part[r_part[:, 3] > 0.5]
+        hits = 0
+        for peak in r:
+            close = ((abs(g[:, 0] - peak[0]) <= 1) & (abs(g[:, 1] - peak[1])
+                                                      <= 1)
+                     & (abs(g[:, 2] - peak[2]) <= 1e-4))
+            hits += bool(close.any())
+        matched += hits
+        unmatched += len(r) - hits + max(0, len(g) - hits)
+    total = int((ref[..., 3] > 0.5).sum())
+    return matched, unmatched, total
 
 
 def main():
@@ -655,6 +906,7 @@ def main():
     main_heat = strided.contiguous()
     n, h, w, parts = main_heat.shape
     k_main = model_est.max_peaks
+    k_pipe = PIPE_CONFIG["max_peaks"]
     log(f"main-path heatmaps: {tuple(main_heat.shape)} -> "
         f"{n * parts} planes of {h}x{w}, K={k_main}")
 
@@ -671,6 +923,7 @@ def main():
         ("row-piece plateau", piece, 16),
         ("batch dims", rng.normal(scale=0.2, size=(2, 2, 16, 26, 3)), 8),
         ("model heatmaps", main_heat, k_main),
+        ("model heatmaps K=16 (the pipeline's)", main_heat, k_pipe),
         ("model heatmaps K=128", main_heat, 128),
         ("model heatmaps K=1", main_heat, 1),
         ("model heatmaps K=37", main_heat, 37),
@@ -727,17 +980,21 @@ def main():
             f"{int(total.max())} peaks in the busiest plane, "
             f"{int(counts.max())} in the busiest tile")
 
-    # Times at K=32 and K=128 on the pose path's own strided view.
+    # Times at K=16 (the pipeline's), K=32 (the pose task's) and K=128
+    # on the pose path's own strided view.
     ms = {k: time_ms(lambda k=k: fp.find_peaks_fused(strided, 0.1, k))
-          for k in (k_main, 128)}
-    plain_ms = time_ms(
-        lambda: fp.find_peaks_fused_plain(main_heat, 0.1, k_main)
-    )
-    bound_ms, bound_by = kernel_bound_ms(n * parts, h, w, k_main)
+          for k in (k_pipe, k_main, 128)}
+    plain_ms = {k: time_ms(
+        lambda k=k: fp.find_peaks_fused_plain(main_heat, 0.1, k))
+        for k in (k_pipe, k_main)}
+    bound = {k: kernel_bound_ms(n * parts, h, w, k) for k in (k_pipe, k_main)}
+    bound_ms, bound_by = bound[k_main]
     log(f"timing at the main-path shape ({card}): find_peaks_fused "
-        f"{ms[k_main]:.4f} ms at K={k_main}, {ms[128]:.4f} ms at K=128, "
-        f"plain version {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by})")
+        f"{ms[k_pipe]:.4f} ms at K={k_pipe}, {ms[k_main]:.4f} ms at "
+        f"K={k_main}, {ms[128]:.4f} ms at K=128; plain version "
+        f"{plain_ms[k_pipe]:.4f} / {plain_ms[k_main]:.4f} ms at K={k_pipe} / "
+        f"{k_main}; bound {bound[k_pipe][0]:.5f} / {bound_ms:.5f} ms "
+        f"({bound_by})")
 
     # The NMS kernel against its plain version, on the detector's own
     # boxes among others.
@@ -793,8 +1050,14 @@ def main():
         raise AssertionError("max_peaks=4 did not escalate")
     log(f"max_peaks=4: {small.model.escalation_count} escalation(s)")
 
-    nms_calls = detection_phase(rf_params, frames, card)
-    recognition_phase(arc_params, frames, face_rng, card)
+    nms_calls, det_ms = detection_phase(rf_params, frames, card)
+    rec_ms = recognition_phase(arc_params, frames, face_rng, card)
+
+    # The perception pipeline, this slice's main path: detect + embed +
+    # pose over batches, both kernels on every batch.
+    pipe_params = (rf_params, arc_params, state_dict)
+    pipe = pipeline_phase(pipe_params, card, {
+        "pose": batch_ms, "detection": det_ms, "recognition": rec_ms})
 
     # 5. float32, TF32 off: fused vs materialised, card vs CPU.
     torch.backends.cudnn.allow_tf32 = False
@@ -840,6 +1103,7 @@ def main():
         log(f"card vs CPU float32 forward: {name} max abs error {err:.2e}")
 
     face_float32_phase(rf_params, arc_params, face_rng, dev)
+    pipeline_float32_phase(pipe_params, face_rng, dev, card)
 
     # 6. The profiler, last: it stays attached to the process and slows
     #    later launches. One call's CUDA kernels, then the kernels' device
@@ -852,7 +1116,7 @@ def main():
         raise AssertionError(f"{kernels_per_call} CUDA kernels in one call, "
                              "expected the scan and the merge")
     kernel_ms = {}
-    for k in (k_main, 128):
+    for k in (k_pipe, k_main, 128):
         _, kernel_ms[k], names = profile_call(
             lambda k=k: fp.find_peaks_fused(strided, 0.1, k), 20)
         log(f"kernels at K={k} ({card}): {kernel_ms[k]:.4f} ms a call ("
@@ -863,7 +1127,7 @@ def main():
     # Suppression calls at N=8, K=256 and 1024 on the model's pre-selected
     # boxes: two kernels a call, each timed.
     nms_kernel_ms = {}
-    for k in (256, 1024):
+    for k in (PIPE_CONFIG["top_k"], 256, 1024):
         top = nms.nms_fixed(*model_boxes, 0.4, score_threshold=0.5, top_k=k)
         valid = torch.isfinite(top[1])
         nms_kernels, total, names = profile_call(
@@ -880,6 +1144,14 @@ def main():
         nms_kernel_ms[k] = dict(names, total=total)
 
     # 7. Results.
+    log(json.dumps({"pipeline": {
+        "frames_per_s": pipe["fps_median"], "frames_per_s_sweeps": pipe["fps"],
+        "ms_per_batch": pipe["batch_ms"], "task_api_ms": pipe["task_ms"],
+        "launches_per_batch": {name: count / pipe["batches"] for name, count
+                               in pipe["launches"].items()},
+        "warmup_programs": pipe["warmup_programs"],
+        "escalations": pipe["escalations"], "card": card,
+    }}))
     log(json.dumps({"kernels": [{
         "name": "fused_peaks",
         "route": "cuda",
@@ -893,9 +1165,18 @@ def main():
         "ms_k128": ms[128],
         "kernel_ms_k128": kernel_ms[128],
         "kernels_per_call": kernels_per_call,
-        "plain_ms": plain_ms,
+        "plain_ms": plain_ms[k_main],
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "ms_k16": ms[k_pipe],
+        "kernel_ms_k16": kernel_ms[k_pipe],
+        "plain_ms_k16": plain_ms[k_pipe],
+        "bound_ms_k16": bound[k_pipe][0],
+        "bound_by_k16": bound[k_pipe][1],
+        "pipeline_launches": pipe["launches"]["fused_peaks"],
+        "pipeline_batches": pipe["batches"],
+        "pipeline_launches_per_batch":
+            pipe["launches"]["fused_peaks"] / pipe["batches"],
         "library_ms": None,
         "card": card,
     }, {
@@ -924,6 +1205,17 @@ def main():
         "bound_by": nms_fields[256]["bound_by"],
         "chain_steps": nms_fields[256]["chain_steps"],
         "chain_steps_k1024": nms_fields[1024]["chain_steps"],
+        "ms_k64": nms_fields[64]["ms"],
+        "kernel_ms_k64": nms_kernel_ms[64]["total"],
+        "nms_fixed_ms_k64": nms_fields[64]["call_ms"],
+        "plain_ms_k64": nms_fields[64]["plain_ms"],
+        "bound_ms_k64": nms_fields[64]["bound_ms"],
+        "bound_by_k64": nms_fields[64]["bound_by"],
+        "chain_steps_k64": nms_fields[64]["chain_steps"],
+        "pipeline_launches": pipe["launches"]["nms"],
+        "pipeline_batches": pipe["batches"],
+        "pipeline_launches_per_batch":
+            pipe["launches"]["nms"] / pipe["batches"],
         "library_ms": None,
         "card": card,
     }]}))

@@ -16,11 +16,15 @@ assembly run on the host (``terran_tpu_torch.pose.assembly``).
 Every function takes optional leading batch dimensions. Divisions by a
 constant divide by a tensor on the same device: PyTorch's CUDA division by
 a Python scalar multiplies by its reciprocal, which can differ by an ulp
-and move a truncated sample point.
+and move a truncated sample point. Such scalars are filled on the device
+and index tables come from ``runtime.device_constant``, so that nothing
+here copies from host memory and waits for the card.
 """
 
 import numpy as np
 import torch
+
+from terran_tpu_torch.runtime import device_constant
 
 # Limb topology tables for the CMU 2017 body model — public OpenPose
 # constants (reference copies at openpose/wrapper.py:12-23). ``MAP_IDX``
@@ -49,7 +53,13 @@ NUM_MIDPOINTS = 10
 
 def _divide(x, value):
     """``x / value`` as a true float32 division on ``x``'s device."""
-    return x / x.new_tensor(value)
+    return x / _scalar(value, x)
+
+
+def _scalar(value, like):
+    """``value`` as a 0-dim tensor of ``like``'s dtype, filled on its
+    device: no copy from host memory, which would wait for the card."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def top_k_first(values, k):
@@ -113,8 +123,11 @@ def _limb_geometry(coords, valid, ups_h, ups_w):
     the upsampled bounds, dirs (..., L, K, K, 2), norms, safe_norms,
     pair_valid).
     """
-    src_parts = torch.as_tensor(LIMBSEQ[:, 0], device=coords.device)
-    dst_parts = torch.as_tensor(LIMBSEQ[:, 1], device=coords.device)
+    src_parts, dst_parts = (
+        device_constant(tuple(LIMBSEQ[:, i].tolist()), torch.int64,
+                        coords.device)
+        for i in (0, 1)
+    )
 
     loc_src = coords.index_select(-3, src_parts).to(torch.float32)
     loc_dst = coords.index_select(-3, dst_parts).to(torch.float32)
@@ -156,7 +169,7 @@ def _score_pairs(px, py, dirs, safe_norms, pair_valid, ups_h,
 
     # Length-regularised score (wrapper.py:320-323); the reference's
     # pafs.shape[1] is the upsampled height H.
-    length_term = safe_norms.new_tensor(0.5 * ups_h) / safe_norms - 1.0
+    length_term = _scalar(0.5 * ups_h, safe_norms) / safe_norms - 1.0
     reg = _divide(mid.sum(dim=-1), float(NUM_MIDPOINTS)) + torch.clamp_max(
         length_term, 0.0
     )
@@ -182,7 +195,8 @@ def limb_scores(pafs, coords, valid, thresh_midpoint):
         coords, valid, h, w
     )
 
-    channel = torch.as_tensor(MAP_IDX[:, 0], device=pafs.device)
+    channel = device_constant(tuple(MAP_IDX[:, 0].tolist()), torch.int64,
+                              pafs.device)
     channel = channel.view(NUM_LIMBS, 1, 1, 1)
     index = (seg_y * w + seg_x) * c + channel  # (..., L, K, K, M)
     flat = pafs.reshape(-1, h * w * c)

@@ -7,14 +7,24 @@ replaces the reference's skimage ``SimilarityTransform.estimate`` + PIL
 - :func:`umeyama`, :func:`alignment_matrix`, :func:`alignment_matrices`:
   the closed-form least-squares similarity (Umeyama 1991), host numpy,
   copied from the JAX package;
-- :func:`warp_affine`, :func:`warp_affine_batch`: bilinear inverse-warp
-  sampling on the image's device in PIL's convention (transform evaluated
-  at output pixel centres, inside test on the raw source coordinates,
-  taps clamped to the image, fill 0).
+- :func:`umeyama_torch`, :func:`inverse_similarity`,
+  :func:`alignment_matrices_torch`: the same alignment in float32 on the
+  landmarks' device, for the pipeline's fused embed mode;
+- :func:`warp_affine`, :func:`warp_affine_batch`,
+  :func:`warp_affine_frames`: bilinear inverse-warp sampling on the
+  image's device in PIL's convention (transform evaluated at output pixel
+  centres, inside test on the raw source coordinates, taps clamped to the
+  image, fill 0), for one image or a batch of frames in one gather.
+
+The JAX package's windowed and grouped-slab warps gather the same crops
+from per-face windows to cut a TPU gather's operand-proportional cost;
+they are bit-identical to the full-frame warp, which this port keeps.
 """
 
 import numpy as np
 import torch
+
+from terran_tpu_torch.runtime import device_constant
 
 # Canonical 5-landmark destination template for 112x112 alignment
 # (arcface/wrapper.py:39-48, including the +8px x-shift for width 112).
@@ -144,30 +154,23 @@ def _blend_taps(p00, p01, p10, p11, x0i, y0i, fx, fy, inside, h, w):
     return torch.where(inside[..., None], out, 0.0)
 
 
-def warp_affine_batch(image, matrices, out_h=112, out_w=112):
-    """Warp crops out of one (H, W, C) image (any dtype, on any device) by
-    (K, 2, 3) output->input matrices -> (K, out_h, out_w, C) float32 on the
-    image's device.
+def _edge_padded(images, h, w):
+    """(..., h, w, C) edge-padded to at least 2x2 along (h, w)."""
+    if h >= 2 and w >= 2:
+        return images
+    dev = images.device
+    rows = torch.arange(max(h, 2), device=dev).clamp(max=h - 1)
+    cols = torch.arange(max(w, 2), device=dev).clamp(max=w - 1)
+    return images.index_select(-3, rows).index_select(-2, cols)
 
-    PIL convention: the transform is evaluated at output pixel centres
-    and the inside test is on those raw coordinates in [0, size); the
-    sample point is shifted by -0.5 and its 2x2 taps are clamped to the
-    image (edge replication); outside pixels are 0. The taps are gathered
-    from the unpadded image at a patch origin clamped to [0, size-2],
-    then :func:`_blend_taps` restores the edge replication, as
-    ``terran_tpu/ops/warp.py::_warp_affine_core`` does. A source smaller
-    than 2x2 is edge-padded to 2x2 first; ``h``/``w`` stay the logical
-    size.
-    """
-    h, w, c = image.shape
-    if h < 2 or w < 2:
-        rows = torch.arange(max(h, 2), device=image.device).clamp(max=h - 1)
-        cols = torch.arange(max(w, 2), device=image.device).clamp(max=w - 1)
-        image = image[rows][:, cols]
-    phys_h, phys_w = image.shape[:2]
-    dev = image.device
-    m = torch.as_tensor(matrices, dtype=torch.float32, device=dev)
-    m = m.reshape(-1, 2, 3)[:, :, :, None, None]  # (K, 2, 3, 1, 1)
+
+def _warp(flat, base, phys_h, phys_w, h, w, matrices, out_h, out_w):
+    """The per-pixel warp of (M, 2, 3) float32 ``matrices`` on the card of
+    ``flat``, the (frames x phys_h x phys_w, C) pixels of one or more
+    sources; ``base`` (M, 1, 1) or 0 is each crop's first pixel in
+    ``flat``. Returns (M, out_h, out_w, C) float32."""
+    dev = flat.device
+    m = matrices[:, :, :, None, None]  # (M, 2, 3, 1, 1)
 
     ys = torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5
     xs = torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5
@@ -188,8 +191,7 @@ def warp_affine_batch(image, matrices, out_h=112, out_w=112):
 
     oy = torch.clamp(y0i, 0, phys_h - 2).to(torch.int64)
     ox = torch.clamp(x0i, 0, phys_w - 2).to(torch.int64)
-    flat = image.reshape(phys_h * phys_w, c)
-    origin = oy * phys_w + ox
+    origin = base + oy * phys_w + ox
 
     def tap(dy, dx):
         return flat[origin + (dy * phys_w + dx)].to(torch.float32)
@@ -198,7 +200,112 @@ def warp_affine_batch(image, matrices, out_h=112, out_w=112):
                        x0i, y0i, fx, fy, inside, h, w)
 
 
+def warp_affine_batch(image, matrices, out_h=112, out_w=112):
+    """Warp crops out of one (H, W, C) image (any dtype, on any device) by
+    (K, 2, 3) output->input matrices -> (K, out_h, out_w, C) float32 on the
+    image's device.
+
+    PIL convention: the transform is evaluated at output pixel centres
+    and the inside test is on those raw coordinates in [0, size); the
+    sample point is shifted by -0.5 and its 2x2 taps are clamped to the
+    image (edge replication); outside pixels are 0. The taps are gathered
+    from the unpadded image at a patch origin clamped to [0, size-2],
+    then :func:`_blend_taps` restores the edge replication, as
+    ``terran_tpu/ops/warp.py::_warp_affine_core`` does. A source smaller
+    than 2x2 is edge-padded to 2x2 first; ``h``/``w`` stay the logical
+    size.
+    """
+    h, w, c = image.shape
+    image = _edge_padded(image, h, w)
+    phys_h, phys_w = image.shape[:2]
+    m = torch.as_tensor(matrices, dtype=torch.float32, device=image.device)
+    return _warp(image.reshape(phys_h * phys_w, c), 0, phys_h, phys_w, h, w,
+                 m.reshape(-1, 2, 3), out_h, out_w)
+
+
+def warp_affine_frames(frames, matrices, out_h=112, out_w=112):
+    """:func:`warp_affine_batch` over a batch in one gather: (B, H, W, C)
+    ``frames`` and (B, K, 2, 3) ``matrices`` (a tensor on the frames'
+    device) -> (B, K, out_h, out_w, C) float32, bit for bit
+    ``warp_affine_batch(frames[b], matrices[b])`` for each frame ``b``."""
+    b, h, w, c = frames.shape
+    frames = _edge_padded(frames, h, w)
+    phys_h, phys_w = frames.shape[1:3]
+    k = matrices.shape[1]
+    base = (torch.arange(b, device=frames.device) * (phys_h * phys_w))
+    base = base.repeat_interleave(k)[:, None, None]
+    crops = _warp(frames.reshape(b * phys_h * phys_w, c), base, phys_h,
+                  phys_w, h, w, matrices.to(torch.float32).reshape(-1, 2, 3),
+                  out_h, out_w)
+    return crops.reshape(b, k, out_h, out_w, c)
+
+
 def warp_affine(image, matrix, out_h=112, out_w=112):
     """:func:`warp_affine_batch` for one (2, 3) matrix -> (out_h, out_w,
     C) float32."""
     return warp_affine_batch(image, matrix, out_h, out_w)[0]
+
+
+def umeyama_torch(src, dst):
+    """The similarity of :func:`umeyama` on ``src``'s device, float32: (...,
+    n, 2) ``src`` and (n, 2) ``dst`` points -> (..., 3, 3) forward matrices,
+    the counterpart of ``terran_tpu/ops/warp.py::umeyama_jax``.
+
+    It keeps that function's full-rank reflection guard (the rotation is
+    proper) and its 1e-12 floor on the source variance. In two dimensions
+    the guarded solution needs no SVD: with cov = [[a, b], [c, d]], the
+    rotation is the angle atan2(c - b, a + d) and the guarded singular
+    value sum is |(a + d, c - b)|. ``torch.linalg``'s SVD and determinant
+    check their status on the host, which would wait for the card.
+    """
+    if src.shape[-1] != 2:
+        raise ValueError(f"expected 2-D points, got {tuple(src.shape)}")
+    src = src.to(torch.float32)
+    dst = dst.to(torch.float32)
+    n = src.shape[-2]
+    src_c = src - src.mean(dim=-2, keepdim=True)
+    mu_src = src.mean(dim=-2)
+    mu_dst = dst.mean(dim=-2)
+    dst_c = dst - mu_dst
+
+    cov = torch.einsum("ki,...kj->...ij", dst_c, src_c) / n
+    x = cov[..., 0, 0] + cov[..., 1, 1]
+    y = cov[..., 1, 0] - cov[..., 0, 1]
+    norm = torch.sqrt(x * x + y * y)
+    degenerate = norm == 0
+    safe = torch.where(degenerate, 1.0, norm)
+    cos = torch.where(degenerate, 1.0, x / safe)
+    sin = torch.where(degenerate, 0.0, y / safe)
+    rotation = torch.stack([torch.stack([cos, -sin], -1),
+                            torch.stack([sin, cos], -1)], -2)
+
+    var_src = torch.clamp_min((src_c * src_c).sum(dim=(-2, -1)) / n, 1e-12)
+    scaled = (norm / var_src)[..., None, None] * rotation
+    shift = mu_dst - (scaled @ mu_src[..., None])[..., 0]
+    top = torch.cat([scaled, shift[..., None]], dim=-1)
+    bottom = torch.zeros(top.shape[:-2] + (1, 3), dtype=top.dtype,
+                         device=top.device)
+    bottom[..., 0, 2] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def inverse_similarity(matrix3):
+    """(..., 3, 3) similarity transforms -> the (..., 2, 3) block of their
+    inverses that the warp consumes (``terran_tpu/ops/warp.py::
+    inverse_similarity``), by the 2x2 adjugate: no host status check."""
+    a, b = matrix3[..., 0, 0], matrix3[..., 0, 1]
+    c, d = matrix3[..., 1, 0], matrix3[..., 1, 1]
+    det = a * d - b * c
+    inv_a = torch.stack([torch.stack([d, -b], -1),
+                         torch.stack([-c, a], -1)], -2) / det[..., None, None]
+    t = matrix3[..., :2, 2:]
+    return torch.cat([inv_a, -(inv_a @ t)], dim=-1)
+
+
+def alignment_matrices_torch(landmarks, template=ARCFACE_TEMPLATE):
+    """(..., 5, 2) landmarks -> (..., 2, 3) float32 output->input alignment
+    matrices on the landmarks' device (``terran_tpu/ops/warp.py::
+    alignment_matrices_jax``), for the fused embed mode of the pipeline."""
+    dst = device_constant(tuple(map(tuple, np.asarray(template).tolist())),
+                          torch.float32, landmarks.device)
+    return inverse_similarity(umeyama_torch(landmarks, dst))

@@ -1,0 +1,1049 @@
+"""Fused full-perception pipeline: detect + align + embed + pose, on the card.
+
+The port of ``terran_tpu/pipeline.py``'s device plan
+(``transfer_plan='device'``) on one CUDA card. A batch of raw uint8 frames
+crosses to the card once and stays there for detection, alignment and
+pose; only fixed-shape result tables come back. Per batch:
+
+1. the perception step: resize on the card, RetinaFace forward, anchor
+   decode and fixed-K NMS (the ``csrc/nms.cu`` kernels), coordinates
+   scaled back and rounded, all packed into one (B, K, 17) table. With
+   ``embed_dispatch='fused'`` the on-card alignment and warp of every slot
+   and a fixed-capacity FaceResNet100 forward follow with no host round
+   trip;
+2. ``embed_dispatch='adaptive'`` (the default): once the detections reach
+   the host, one FaceResNet100 forward for the whole batch over the
+   detected faces, sized by bucket, warped from the resident frames with
+   the host's float64 Umeyama matrices;
+3. pose: the OpenPose forward and the fused x8 upsample + peak scan (the
+   ``csrc/fused_peaks.cu`` kernels); with ``limb_dispatch='adaptive'``
+   the PAF x8 upsample and the limb scores run in a second step sized to
+   the peaks found.
+
+Device work is enqueued on one CUDA stream and never waited on while it
+is enqueued: the host decisions (overflow, face and peak counts) run in
+``advance_batch`` on tables fetched through pinned memory. Uploads run on
+a second stream, from pinned staging. ``process_stream`` dispatches batch
+*i+1* before batch *i*'s host stages run, as the JAX class does.
+
+Not ported, each raising ``NotImplementedError`` that names its
+ROADMAP.md item: ``mesh`` (item 10), the 'host' transfer plan and its host
+resize, warp and embed worker (item 9), int8 trunks (item 8), and
+``limb_backend='matmul'`` (a TPU cost reformulation of the gather form).
+The JAX class's windowed and grouped-slab embed warps, also TPU cost
+reformulations, give the full-frame warp's crops bit for bit; this port
+warps from the full frames, so ``pipeline_embed_windows`` is read and has
+no effect.
+"""
+
+import contextlib
+import functools
+import threading
+
+import numpy as np
+import torch
+
+from terran_tpu_torch.models.arcface import (
+    EMBEDDING_DIM, FaceResNet100, normalize_embeddings,
+)
+from terran_tpu_torch.models.openpose import BodyPoseModel
+from terran_tpu_torch.models.retinaface import (
+    RetinaFace, make_detect_fn, unpack_detections,
+)
+from terran_tpu_torch.ops.fused_peaks import fused_peaks_enabled
+from terran_tpu_torch.ops.pose_decode import (
+    NUM_LIMBS, NUM_PARTS, forward_and_find_peaks, limb_scores, pack_peaks,
+    unpack_pose_outputs,
+)
+from terran_tpu_torch.ops.resize import resize_bilinear_u8, resized_shape
+from terran_tpu_torch.ops.upsample import upsample_bicubic
+from terran_tpu_torch.ops.warp import (
+    alignment_matrices, alignment_matrices_torch, warp_affine_frames,
+)
+from terran_tpu_torch.pose.assembly import assemble_humans, get_keypoints
+from terran_tpu_torch.runtime import (
+    PARAMS_KEEP_F32, cast_params_for_compute, default_policy, resolve_device,
+)
+from terran_tpu_torch.utils.convert import as_state_dict
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to terran_tpu_torch yet (ROADMAP.md, "
+        f"Queue 1 item {item})"
+    )
+
+
+def _resolve_dispatch(name, mode):
+    """'auto' -> 'adaptive'."""
+    if mode == "auto":
+        return "adaptive"
+    if mode not in ("adaptive", "fused"):
+        raise ValueError(f"unknown {name} {mode!r}")
+    return mode
+
+
+def _buckets(setting):
+    return sorted(int(x) for x in str(setting).split(",") if str(x).strip())
+
+
+def _load(model, params, dtype, family, device):
+    """``model`` in ``dtype`` with ``params`` (a state dict or a
+    ``terran_tpu`` pytree), on ``device``, in eval mode."""
+    params = cast_params_for_compute(
+        as_state_dict(params), dtype, keep_f32=PARAMS_KEEP_F32[family]
+    )
+    model = model.to(dtype=dtype)
+    if family == "arcface":
+        model.embed.to(torch.float32)  # the projection computes in float32
+    model.load_state_dict(params, strict=True)
+    return model.to(device).eval()
+
+
+class _Fetch:
+    """A device tensor's copy to the host, started when made: for a CUDA
+    tensor a non-blocking copy into pinned memory on the current stream,
+    and an event that :meth:`numpy` waits on before it reads (reading
+    before the event gives stale data with no error)."""
+
+    def __init__(self, tensor):
+        self.nbytes = tensor.nbytes
+        if tensor.device.type == "cuda":
+            self._host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                     pin_memory=True)
+            self._host.copy_(tensor, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+        else:
+            self._host, self._done = tensor, None
+
+    def numpy(self):
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host.numpy()
+
+
+def _device_work(method):
+    """Run ``method`` in inference mode with the pipeline's compute stream
+    current, so that every launch and copy it makes is ordered on it."""
+
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with torch.inference_mode(), torch.cuda.stream(self._stream):
+            return method(self, *args, **kwargs)
+
+    return run
+
+
+class PerceptionPipeline:
+    """End-to-end detect+embed+pose over frame batches.
+
+    Parameters default to the checkpoint store; pass explicit params for
+    testing, as this package's state dicts or as the ``terran_tpu``
+    pytrees the JAX class takes. ``device``: where the models run, the
+    CUDA card unless the caller names another (``"cpu"``).
+    """
+
+    def __init__(self, det_params=None, rec_params=None, pose_params=None,
+                 det_short_side=None, pose_short_side=None, threshold=None,
+                 nms_threshold=None, top_k=None, max_faces=None,
+                 max_peaks=None, compute_dtype=None, mesh=None,
+                 with_pose=True, with_embeddings=True, timer=None,
+                 embed_dispatch=None, limb_dispatch=None,
+                 max_escalations=None, transfer_plan=None,
+                 embed_precision=None, pose_precision=None,
+                 host_resize=None, device=None):
+        from terran_tpu_torch.checkpoint import load_checkpoint_params
+        from terran_tpu_torch.config import get_config
+
+        cfg = get_config()
+        if mesh is not None:
+            raise _not_ported("a mesh (multi-card data parallelism)", 10)
+        self.mesh = None
+        self.transfer_plan = (
+            cfg.transfer_plan if transfer_plan is None else transfer_plan
+        )
+        if self.transfer_plan not in ("device", "host"):
+            raise ValueError(
+                f"transfer_plan must be 'device' or 'host', got "
+                f"{self.transfer_plan!r}"
+            )
+        if self.transfer_plan == "host":
+            raise _not_ported("transfer_plan='host'", 9)
+        # The host resize serves only the 'host' plan; its setting is
+        # validated as in the JAX class and has no effect here.
+        self.host_resize = (
+            cfg.host_resize if host_resize is None else host_resize
+        )
+        if self.host_resize not in ("auto", "exact", "cv2"):
+            raise ValueError(
+                f"host_resize must be 'auto', 'exact', or 'cv2', got "
+                f"{self.host_resize!r}"
+            )
+        self.embed_precision = (
+            cfg.embed_precision if embed_precision is None
+            else embed_precision
+        )
+        self.pose_precision = (
+            cfg.pose_precision if pose_precision is None else pose_precision
+        )
+        for name, value in (("embed_precision", self.embed_precision),
+                            ("pose_precision", self.pose_precision)):
+            if value not in ("native", "int8"):
+                raise ValueError(
+                    f"{name} must be 'native' or 'int8', got {value!r}"
+                )
+            if value == "int8":
+                raise _not_ported(f"{name}='int8'", 8)
+        # PAF sampler backend: 'auto' is the gather form off the TPU.
+        self.limb_backend = cfg.limb_backend
+        if self.limb_backend == "auto":
+            self.limb_backend = "gather"
+        if self.limb_backend not in ("matmul", "gather"):
+            raise ValueError(
+                f"limb_backend must be 'auto', 'matmul', or 'gather', "
+                f"got {self.limb_backend!r}"
+            )
+        if self.limb_backend == "matmul":
+            raise NotImplementedError(
+                "limb_backend='matmul' is a TPU cost reformulation of the "
+                "gather form, which this package runs (ROADMAP.md, Queue 1)"
+            )
+
+        self.det_short_side = (
+            cfg.detection_short_side if det_short_side is None
+            else det_short_side
+        )
+        self.pose_short_side = (
+            cfg.pose_short_side if pose_short_side is None
+            else pose_short_side
+        )
+        self.threshold = (
+            cfg.detection_threshold if threshold is None else threshold
+        )
+        self.nms_threshold = (
+            cfg.nms_iou_threshold if nms_threshold is None else nms_threshold
+        )
+        self.top_k = cfg.pipeline_top_k if top_k is None else top_k
+        self.max_faces = (
+            cfg.pipeline_max_faces if max_faces is None else max_faces
+        )
+        self.max_peaks = (
+            cfg.max_peaks_per_part if max_peaks is None else max_peaks
+        )
+        self.with_pose = with_pose
+        self.with_embeddings = with_embeddings
+        # Overflow escalation: saturated batches re-dispatch at doubled
+        # capacity. Counters are cumulative over the pipeline's lifetime.
+        self.max_escalations = (
+            cfg.max_escalations if max_escalations is None
+            else max_escalations
+        )
+        self.escalations = {"detect": 0, "pose": 0, "embed": 0}
+        # Host->device upload bytes of every put_frames / _put_batch call.
+        # The stream's uploader thread and the main loop both add to it.
+        self.upload_bytes = 0
+        self._upload_bytes_lock = threading.Lock()
+
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # Tensors report their card's index: 'cuda' != 'cuda:0'.
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if det_params is None:
+            det_params = load_checkpoint_params(
+                "terran_tpu_torch.face.detection.RetinaFaceDetector"
+            )
+        if rec_params is None and with_embeddings:
+            rec_params = load_checkpoint_params(
+                "terran_tpu_torch.face.recognition.ArcFaceRecognizer"
+            )
+        if pose_params is None and with_pose:
+            pose_params = load_checkpoint_params(
+                "terran_tpu_torch.pose.openpose.OpenPoseEstimator"
+            )
+
+        cuda = self.device.type == "cuda"
+        # All device work is ordered on one compute stream; uploads run
+        # on their own stream.
+        self._stream = torch.cuda.current_stream(self.device) if cuda else None
+        self._upload_stream = torch.cuda.Stream(self.device) if cuda else None
+
+        dtype = compute_dtype or default_policy().compute_dtype
+        self.det_model = _load(RetinaFace(), det_params, dtype,
+                               "retinaface", self.device)
+        self.rec_model = (
+            None if rec_params is None else
+            _load(FaceResNet100(), rec_params, dtype, "arcface", self.device)
+        )
+        self.pose_model = (
+            None if pose_params is None else
+            _load(BodyPoseModel(), pose_params, dtype, "openpose",
+                  self.device)
+        )
+        # The loaded weights, by reference (None where a model is absent).
+        self.det_params = self.det_model.state_dict()
+        self.rec_params = (None if self.rec_model is None
+                           else self.rec_model.state_dict())
+        self.pose_params = (None if self.pose_model is None
+                            else self.pose_model.state_dict())
+
+        self.embed_dispatch = _resolve_dispatch(
+            "embed_dispatch",
+            cfg.embed_dispatch if embed_dispatch is None else embed_dispatch,
+        )
+        self.embed_buckets = _buckets(cfg.pipeline_embed_buckets)
+        self.embed_windows = _buckets(cfg.pipeline_embed_windows)
+        self.limb_dispatch = _resolve_dispatch(
+            "limb_dispatch",
+            cfg.limb_dispatch if limb_dispatch is None else limb_dispatch,
+        )
+        self.peak_buckets = _buckets(cfg.pose_peak_buckets)
+
+        self._step_fns = {}
+        self._pose_fns = {}
+        self._warp_embed_fns = {}
+        self._pose_detect_fns = {}
+        self._limb_fns = {}
+
+        # Optional observability hooks: a StageTimer (aggregate per-stage
+        # wall time) and/or a Timeline (per-batch spans with bytes —
+        # utils/profiling.py). dispatch_batch assigns each batch a
+        # monotonically increasing id that every stage span carries.
+        self.timer = timer
+        self.timeline = None
+        self._batch_seq = 0
+
+        # Pose thresholds (reference openpose/wrapper.py:177-180).
+        self.keypoint_threshold = cfg.keypoint_threshold
+        self.thresh_midpoint = cfg.paf_midpoint_threshold
+        self.human_threshold = cfg.human_score_threshold
+        self.use_fused_peaks = fused_peaks_enabled(cfg.fused_peaks)
+
+    # ------------------------------------------------------------------
+    # Device programs: closures cached per shape and capacity
+    # ------------------------------------------------------------------
+
+    def _perception_fn(self, full_h, full_w, top_k=None):
+        """The perception step for (full_h, full_w) frames at NMS capacity
+        ``top_k``: resident uint8 frames -> {'det_packed': (B, K, 17)} and,
+        in fused embed mode, the aligned crops and their slot mask."""
+        top_k = self.top_k if top_k is None else top_k
+        key = (full_h, full_w, self.embed_dispatch, top_k)
+        if key in self._step_fns:
+            return self._step_fns[key]
+
+        det_h, det_w, det_scale = resized_shape(
+            full_h, full_w, self.det_short_side
+        )
+        # Every anchor cell is valid at the unpadded det shape.
+        detect = make_detect_fn(self.det_model, det_h, det_w,
+                                nms_threshold=self.nms_threshold,
+                                top_k=top_k)
+        max_faces = self.max_faces
+        inv_scale = 1.0 / det_scale
+        with_embeddings = (
+            self.with_embeddings and self.rec_model is not None
+            and self.embed_dispatch == "fused"
+        )
+
+        def step(frames_full):
+            frames_det = resize_bilinear_u8(frames_full, det_h, det_w)
+            packed = detect(frames_det, self.threshold)
+            # Boxes and landmarks back to full resolution with the task
+            # API's rounding (around().astype(int32)); one packed table
+            # -> one copy back: 4 box + 10 landmark + score + mask +
+            # per-image NMS overflow (broadcast along K).
+            coords = torch.round(packed[..., :14] * inv_scale).to(
+                torch.int32)
+            result = {"det_packed": torch.cat(
+                [coords.to(torch.float32), packed[..., 14:]], dim=-1)}
+            if with_embeddings:
+                b = coords.shape[0]
+                lmk_top = coords[:, :max_faces, 4:14].reshape(
+                    b, -1, 5, 2).to(torch.float32)
+                mats = alignment_matrices_torch(lmk_top)
+                # The reference warps to uint8.
+                result["crops"] = torch.round(
+                    warp_affine_frames(frames_full, mats))
+                result["emb_mask_dev"] = packed[:, :max_faces, 15] > 0.5
+            return result
+
+        self._step_fns[key] = step
+        return step
+
+    def _embed_fn(self):
+        """(B, F, 112, 112, 3) crops and (B, F) mask -> the packed (B, F,
+        513) grid: normalised embeddings, zero where masked, + the mask."""
+        return self._embed
+
+    def _embed(self, crops, emb_mask):
+        b, f = crops.shape[:2]
+        feats = self.rec_model(crops.reshape((-1,) + crops.shape[2:]))
+        feats = normalize_embeddings(feats.to(torch.float32))
+        feats = torch.where(emb_mask[..., None], feats.reshape(b, f, -1),
+                            0.0)
+        return torch.cat([feats, emb_mask[..., None].to(torch.float32)],
+                         dim=-1)
+
+    def _warp_embed_fn(self, k_slots, frames_shape):
+        """Warp+embed for ``k_slots`` face slots per frame of a resident
+        batch (adaptive embed). Takes the plan as one packed (B, k, 7)
+        float32 tensor: 6 alignment-matrix entries (host float64 Umeyama)
+        + validity."""
+        key = (k_slots,) + tuple(frames_shape)
+        if key in self._warp_embed_fns:
+            return self._warp_embed_fns[key]
+
+        def warp_embed(frames, packed):
+            b = frames.shape[0]
+            mats = packed[..., :6].reshape(b, k_slots, 2, 3)
+            valid = packed[..., 6] > 0.5
+            crops = torch.round(warp_affine_frames(frames, mats))
+            return self._embed(crops, valid)
+
+        self._warp_embed_fns[key] = warp_embed
+        return warp_embed
+
+    def _select_embed_bucket(self, count, capacity):
+        """Smallest configured per-frame slot bucket >= count, else the
+        full ``max_faces`` capacity."""
+        for b in self.embed_buckets:
+            if count <= b < capacity:
+                return b
+        return capacity
+
+    def _pose_fn(self, full_h, full_w, max_peaks=None):
+        """The pose step with the limbs fused in: frames -> (peaks (B, P,
+        K, 5), limbs (B, L, K, K, 2))."""
+        max_peaks = self.max_peaks if max_peaks is None else max_peaks
+        key = (full_h, full_w, max_peaks)
+        if key in self._pose_fns:
+            return self._pose_fns[key]
+        pose_h, pose_w, _ = resized_shape(
+            full_h, full_w, self.pose_short_side
+        )
+
+        def decode(frames_full):
+            paf, peaks, coords, valid = self._pose_front(
+                frames_full, pose_h, pose_w, max_peaks
+            )
+            reg, accept = limb_scores(upsample_bicubic(paf, 8), coords,
+                                      valid, self.thresh_midpoint)
+            return peaks, torch.stack([reg, accept.to(torch.float32)], -1)
+
+        self._pose_fns[key] = decode
+        return decode
+
+    def _pose_front(self, frames_full, pose_h, pose_w, max_peaks):
+        """Resize on the card + CPM forward + fixed-K peak finding (the
+        fused upsample + peak-scan kernels on the card). Returns (paf x1
+        float32, peaks packed (B, P, K, 5) = y, x, score, valid, part
+        overflow, coords, valid)."""
+        frames_pose = resize_bilinear_u8(frames_full, pose_h, pose_w)
+        paf, coords, scores, valid, overflow = forward_and_find_peaks(
+            self.pose_model, frames_pose, self.keypoint_threshold,
+            max_peaks, self.use_fused_peaks,
+        )
+        return paf, pack_peaks(coords, scores, valid, overflow), coords, \
+            valid
+
+    def _pose_detect_fn(self, full_h, full_w, max_peaks=None):
+        """First half of the adaptive pose path: frames -> (peaks packed,
+        paf at x1, left on the card for :meth:`_limb_fn`)."""
+        max_peaks = self.max_peaks if max_peaks is None else max_peaks
+        key = (full_h, full_w, max_peaks)
+        if key in self._pose_detect_fns:
+            return self._pose_detect_fns[key]
+        pose_h, pose_w, _ = resized_shape(
+            full_h, full_w, self.pose_short_side
+        )
+
+        def detect_pose(frames_full):
+            paf, peaks, _, _ = self._pose_front(
+                frames_full, pose_h, pose_w, max_peaks
+            )
+            return peaks, paf
+
+        self._pose_detect_fns[key] = detect_pose
+        return detect_pose
+
+    def _limb_fn(self, kb, paf_shape):
+        """Bucketed limb-pair scoring: PAF x8 upsample + line integrals
+        over (kb, kb) candidate pairs per limb, the gather form. Takes
+        the peak plan as one (B, P, kb, 3) tensor: y, x, valid."""
+        key = (kb, self.limb_backend) + tuple(paf_shape)
+        if key in self._limb_fns:
+            return self._limb_fns[key]
+
+        def limbs_fn(paf, cv_packed):
+            coords = cv_packed[..., :2].to(torch.int32)
+            valid = cv_packed[..., 2] > 0.5
+            reg, accept = limb_scores(upsample_bicubic(paf, 8), coords,
+                                      valid, self.thresh_midpoint)
+            return torch.stack([reg, accept.to(torch.float32)], dim=-1)
+
+        self._limb_fns[key] = limbs_fn
+        return limbs_fn
+
+    def _select_peak_bucket(self, count, cap=None):
+        cap = self.max_peaks if cap is None else cap
+        for b in self.peak_buckets:
+            if count <= b < cap:
+                return b
+        return cap
+
+    # ------------------------------------------------------------------
+    # Host orchestration
+    # ------------------------------------------------------------------
+
+    @_device_work
+    def warmup(self, batch, height, width):
+        """Build the CUDA kernels and run every program this pipeline can
+        dispatch for (batch, height, width) frames once, on zeros:
+        detection, the embed program at every bucket up to ``max_faces``
+        (or the fused embed), and the pose programs (every limb bucket up
+        to ``max_peaks`` in adaptive mode), so that a stream meets no
+        first-use cost. Returns the number of programs run."""
+        if self.device.type == "cuda":
+            from terran_tpu_torch.ops import fused_peaks, nms
+            from terran_tpu_torch.utils.cuda_build import load_libraries
+
+            load_libraries("fused_peaks.cu", "nms.cu")  # nvcc in parallel
+            fused_peaks._library()
+            nms._library()
+
+        frames_shape = (batch, height, width, 3)
+        count = 0
+
+        def run(program, *args):
+            nonlocal count
+            out = program(*args)
+            count += 1
+            return out
+
+        frames = self.put_frames(np.zeros(frames_shape, np.uint8))
+        run(self._perception_fn(height, width), frames)
+        embeds = self.with_embeddings and self.rec_model is not None
+        if embeds and self.embed_dispatch == "fused":
+            run(self._embed_fn(),
+                torch.zeros((batch, self.max_faces, 112, 112, 3),
+                            device=self.device),
+                torch.zeros((batch, self.max_faces), dtype=torch.bool,
+                            device=self.device))
+        elif embeds:
+            for k in sorted(set(self.embed_buckets) | {self.max_faces}):
+                if k <= self.max_faces:
+                    run(self._warp_embed_fn(k, frames_shape), frames,
+                        self._put_batch(np.zeros((batch, k, 7),
+                                                 np.float32)))
+        if self.with_pose and self.pose_model is not None:
+            if self.limb_dispatch == "adaptive":
+                _, paf = run(self._pose_detect_fn(height, width), frames)
+                for kb in sorted(set(self.peak_buckets) | {self.max_peaks}):
+                    if kb <= self.max_peaks:
+                        run(self._limb_fn(kb, paf.shape), paf,
+                            self._put_batch(np.zeros(
+                                (batch, NUM_PARTS, kb, 3), np.float32)))
+            else:
+                run(self._pose_fn(height, width), frames)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return count
+
+    def put_frames(self, frames):
+        """Single host->device upload of a frame batch. Tensors already on
+        the pipeline's device pass unchanged. On the card the frames are
+        staged in pinned memory and copied on the upload stream; this
+        returns once the copy is done, with the tensor marked for use on
+        the compute stream."""
+        if isinstance(frames, torch.Tensor) and frames.device == self.device:
+            return frames
+        src = torch.as_tensor(np.asarray(frames))
+        with self._upload_bytes_lock:
+            self.upload_bytes += src.nbytes
+        if self._upload_stream is None:
+            return src.to(self.device, copy=True)
+        with torch.cuda.stream(self._upload_stream):
+            staging = torch.empty(src.shape, dtype=src.dtype,
+                                  pin_memory=True)
+            staging.copy_(src)
+            frames_dev = staging.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        # Allocated on the upload stream: keep its memory from reuse until
+        # the compute stream's work on it has run.
+        frames_dev.record_stream(self._stream)
+        done.synchronize()
+        return frames_dev
+
+    def _put_batch(self, array):
+        """Upload a small host-built plan array on the current stream,
+        through pinned memory so the copy does not wait for the card."""
+        array = np.asarray(array)
+        with self._upload_bytes_lock:
+            self.upload_bytes += array.nbytes
+        src = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cuda":
+            return src.pin_memory().to(self.device, non_blocking=True)
+        return src.to(self.device, copy=True)
+
+    @contextlib.contextmanager
+    def _stage(self, name, items=0, nbytes=0, batch=None):
+        """Timing context for one pipeline stage: records into the
+        aggregate StageTimer and, when a Timeline is attached and the
+        span carries a batch id, into the per-batch timeline."""
+        with contextlib.ExitStack() as st:
+            if self.timer is not None:
+                st.enter_context(self.timer.stage(name, items))
+            if self.timeline is not None and batch is not None:
+                st.enter_context(self.timeline.span(batch, name, nbytes))
+            yield
+
+    def _dispatch_perception(self, frames_dev, top_k=None):
+        """Enqueue the perception step (and, in fused embed mode, the
+        embed program) on resident frames and start the result copies.
+        Returns the dict of in-flight fetches."""
+        full_h, full_w = frames_dev.shape[1:3]
+        out = dict(self._perception_fn(full_h, full_w, top_k)(frames_dev))
+        if "crops" in out:
+            out["emb_packed"] = self._embed_fn()(
+                out.pop("crops"), out.pop("emb_mask_dev"))
+        return {key: _Fetch(value) for key, value in out.items()}
+
+    def process_batch(self, frames):
+        """Run the full pipeline on an (N, H, W, 3) uint8 RGB batch.
+
+        Returns a dict of host arrays (faces, embeddings) and, when pose is
+        enabled, the per-image assembled pose dicts.
+        """
+        return self.finalize_batch(*self.dispatch_batch(frames))
+
+    @_device_work
+    def dispatch_batch(self, frames, stage=None):
+        """Enqueue all device work for one batch without waiting for the
+        card.
+
+        Returns (out dict of in-flight fetches, pose tuple or None, n,
+        pose_scale).
+        """
+        bid = self._batch_seq
+        self._batch_seq += 1
+        if stage is None:
+            stage = functools.partial(self._stage, batch=bid)
+        if not hasattr(frames, "shape"):
+            frames = np.asarray(frames)
+        n = frames.shape[0]
+        full_h, full_w = frames.shape[1:3]
+
+        with stage("h2d", items=n, nbytes=getattr(frames, "nbytes", 0)):
+            frames_dev = self.put_frames(frames)
+        with stage("perception_step", items=n):
+            out = self._dispatch_perception(frames_dev)
+        if (self.max_escalations > 0
+                or (self.embed_dispatch == "adaptive"
+                    and self.with_embeddings
+                    and self.rec_model is not None)):
+            # The adaptive embed program is dispatched in advance_batch,
+            # once the detections are on the host, and escalation
+            # re-dispatches saturated batches: the frames stay resident.
+            out["_frames_dev"] = frames_dev
+        if self.max_escalations > 0:
+            out["_redetect"] = lambda tk: self._dispatch_perception(
+                frames_dev, top_k=tk
+            )
+
+        pose_out = None
+        pose_scale = None
+        if self.with_pose and self.pose_model is not None:
+            _, _, pose_scale = resized_shape(
+                full_h, full_w, self.pose_short_side
+            )
+            if self.limb_dispatch == "adaptive":
+                def repose(max_peaks):
+                    peaks, paf = self._pose_detect_fn(
+                        full_h, full_w, max_peaks)(frames_dev)
+                    return _Fetch(peaks), paf
+
+                with stage("pose_dispatch", items=n):
+                    peaks_dev, paf_dev = repose(self.max_peaks)
+                pose_out = ("adaptive", peaks_dev, paf_dev, repose)
+            else:
+                with stage("pose_dispatch", items=n):
+                    pose_out = tuple(
+                        _Fetch(v) for v in
+                        self._pose_fn(full_h, full_w)(frames_dev)
+                    )
+
+        out["_batch_id"] = bid
+        return out, pose_out, n, pose_scale
+
+    def finalize_batch(self, out, pose_out, n, pose_scale, stage=None):
+        """Fetch results and run the host stages for a dispatched batch."""
+        return self.collect_batch(
+            self.advance_batch(out, pose_out, n, pose_scale, stage=stage)
+        )
+
+    @_device_work
+    def advance_batch(self, out, pose_out, n, pose_scale, stage=None):
+        """Finalization phase A: fetch the small decision tables (packed
+        detections, peaks), run overflow escalations, and dispatch the
+        occupancy-adaptive second-stage programs (bucketed warp+embed,
+        limb scoring) with their result copies started. Returns the
+        state dict ``collect_batch`` consumes."""
+        bid = out.pop("_batch_id", None)
+        if stage is None:
+            stage = functools.partial(self._stage, batch=bid)
+
+        frames_dev = out.pop("_frames_dev", None)
+        redetect = out.pop("_redetect", None)
+
+        det_dev = out.pop("det_packed")
+        with stage("det_fetch", items=n, nbytes=det_dev.nbytes):
+            det = det_dev.numpy()[:n]
+        boxes, landmarks, scores, mask, overflow = unpack_detections(det)
+        # Overflow escalation: a saturated NMS pre-selection may have
+        # dropped real faces; re-dispatch the perception step at doubled
+        # top_k on the still-resident frames.
+        top_k_used = self.top_k
+        attempts = 0
+        while (bool(overflow.any()) and redetect is not None
+               and attempts < self.max_escalations):
+            attempts += 1
+            top_k_used *= 2
+            self.escalations["detect"] += 1
+            with stage("detect_escalation", items=n):
+                out_esc = redetect(top_k_used)
+                if "emb_packed" in out_esc:
+                    out["emb_packed"] = out_esc["emb_packed"]
+                det = out_esc.pop("det_packed").numpy()[:n]
+                boxes, landmarks, scores, mask, overflow = (
+                    unpack_detections(det)
+                )
+        out["boxes"] = boxes.astype(np.int32)
+        out["landmarks"] = landmarks.astype(np.int32)
+        out["scores"] = scores.astype(np.float32)
+        out["mask"] = mask
+        out["det_overflow"] = overflow
+
+        adaptive_embed = (
+            self.embed_dispatch == "adaptive" and self.with_embeddings
+            and self.rec_model is not None
+        )
+        emb_plan = None
+        if adaptive_embed and frames_dev is not None:
+            # Dispatch the bucketed warp+embed now; it computes while the
+            # pose fetch and host assembly run.
+            with stage("embed_dispatch", items=n):
+                emb_plan = self._dispatch_adaptive_embed(out, frames_dev)
+
+        pose_state = None
+        if pose_out is not None and pose_out[0] == "adaptive":
+            peaks_dev, paf_dev, repose = pose_out[1:]
+            with stage("pose_fetch", items=n, nbytes=peaks_dev.nbytes):
+                peaks_np = peaks_dev.numpy()
+            # Escalation: a saturated part heatmap dropped its weakest
+            # peaks; re-run forward+peaks at doubled max_peaks.
+            mp_used = self.max_peaks
+            attempts = 0
+            while ((peaks_np[:n, :, 0, 4] > 0.5).any()
+                   and attempts < self.max_escalations):
+                attempts += 1
+                mp_used *= 2
+                self.escalations["pose"] += 1
+                with stage("pose_escalation", items=n):
+                    peaks_dev, paf_dev = repose(mp_used)
+                    peaks_np = peaks_dev.numpy()
+            coords = peaks_np[..., :2].astype(np.int32)
+            scores = peaks_np[..., 2].astype(np.float32)
+            valid = peaks_np[..., 3] > 0.5
+            out["pose_overflow"] = (peaks_np[:n, :, 0, 4] > 0.5).any(axis=-1)
+            with stage("limb_dispatch", items=n):
+                kb, limbs_dev = self._dispatch_adaptive_limbs(
+                    paf_dev, coords, valid, cap=mp_used
+                )
+            pose_state = (
+                "adaptive", coords[:n, :, :kb], scores[:n, :, :kb],
+                valid[:n, :, :kb], kb, limbs_dev,
+            )
+        elif pose_out is not None:
+            # Fused limbs: one packed result, fetched in phase B, where
+            # its overflow escalation also lives.
+            pose_state = ("fused", pose_out, frames_dev)
+
+        return {
+            "out": out, "n": n, "pose_scale": pose_scale, "bid": bid,
+            "stage": stage, "emb_plan": emb_plan,
+            "adaptive_embed": adaptive_embed, "pose": pose_state,
+        }
+
+    @_device_work
+    def collect_batch(self, state):
+        """Finalization phase B: the heavy fetches (limb tables,
+        embeddings, or the fused pose tables) and the host-side human
+        assembly. Runs one pipeline slot after ``advance_batch`` under
+        ``process_stream`` so the programs it waits on computed while the
+        next batch was advancing."""
+        out = state["out"]
+        n = state["n"]
+        pose_scale = state["pose_scale"]
+        stage = state["stage"]
+
+        if state["pose"] is not None and state["pose"][0] == "adaptive":
+            _, coords, scores, valid, kb, limbs_dev = state["pose"]
+            with stage("limb_fetch", items=n,
+                       nbytes=getattr(limbs_dev, "nbytes", 0)):
+                if limbs_dev is None:  # no peaks anywhere
+                    reg = np.zeros((n, NUM_LIMBS, kb, kb), np.float32)
+                    accept = np.zeros((n, NUM_LIMBS, kb, kb), bool)
+                else:
+                    limbs = limbs_dev.numpy()[:n]
+                    reg = limbs[..., 0]
+                    accept = limbs[..., 1] > 0.5
+        elif state["pose"] is not None:
+            _, pose_out, frames_dev = state["pose"]
+            with stage("pose_fetch", items=n,
+                       nbytes=sum(v.nbytes for v in pose_out)):
+                (coords, scores, valid, reg, accept,
+                 pose_overflow) = unpack_pose_outputs(
+                    *(v.numpy() for v in pose_out))
+            mp_used = self.max_peaks
+            attempts = 0
+            while (pose_overflow[:n].any() and frames_dev is not None
+                   and attempts < self.max_escalations):
+                attempts += 1
+                mp_used *= 2
+                self.escalations["pose"] += 1
+                with stage("pose_escalation", items=n):
+                    decode = self._pose_fn(frames_dev.shape[1],
+                                           frames_dev.shape[2], mp_used)
+                    (coords, scores, valid, reg, accept,
+                     pose_overflow) = unpack_pose_outputs(
+                        *(_Fetch(v).numpy() for v in decode(frames_dev)))
+            out["pose_overflow"] = pose_overflow[:n].any(axis=-1)
+
+        if state["pose"] is not None:
+            with stage("pose_assembly", items=n):
+                poses = []
+                for i in range(n):
+                    peaks_by_id, humans = assemble_humans(
+                        coords[i], scores[i], valid[i], reg[i], accept[i],
+                        human_threshold=self.human_threshold,
+                    )
+                    poses.append(
+                        get_keypoints(peaks_by_id, humans, pose_scale)
+                    )
+                out["poses"] = poses
+
+        if "emb_packed" in out:
+            # Fused embed: unpack the single-copy embedding grid.
+            emb_dev = out.pop("emb_packed")
+            with stage("embed_fetch", items=n, nbytes=emb_dev.nbytes):
+                emb = emb_dev.numpy()[:n]
+            out["embeddings"] = emb[..., :-1]
+            out["embeddings_mask"] = emb[..., -1] > 0.5
+        elif state["adaptive_embed"]:
+            with stage("embed_fetch", items=n):
+                out["embeddings"], out["embeddings_mask"] = (
+                    self._collect_adaptive_embed(state["emb_plan"], n)
+                )
+        return out
+
+    def _dispatch_adaptive_limbs(self, paf_dev, coords, valid, cap=None):
+        """Enqueue the bucketed limb-pair program.
+
+        ``kb`` covers the busiest (image, part)'s valid-peak count (valid
+        peaks occupy prefix slots); ``cap`` is the peak capacity of the
+        program that produced ``coords``. Returns (kb, in-flight fetch),
+        or (1, None) when the whole batch produced no peaks.
+        """
+        counts = valid.sum(axis=-1)
+        busiest = int(counts.max()) if counts.size else 0
+        if busiest == 0:
+            return 1, None
+        kb = self._select_peak_bucket(busiest, cap)
+        cv = np.concatenate(
+            [
+                coords[:, :, :kb].astype(np.float32),
+                (valid[:, :, :kb])[..., None].astype(np.float32),
+            ],
+            axis=-1,
+        )
+        limbs = self._limb_fn(kb, paf_dev.shape)(paf_dev, self._put_batch(cv))
+        return kb, _Fetch(limbs)
+
+    def _plan_adaptive_embed(self, out, b):
+        """Bucket selection, capacity escalation and host Umeyama for the
+        bucketed warp+embed program. Returns None when no faces were
+        found, else (packed (b, k, 7): 6 matrix entries + validity, k)."""
+        # Slots are positional (NMS suppression leaves holes in the mask),
+        # so the bucket must cover the highest OCCUPIED slot, not the count.
+        mask_full = out["mask"]
+        slot_no = np.arange(1, mask_full.shape[1] + 1)
+        busiest = int((mask_full * slot_no).max()) if mask_full.size else 0
+        if busiest == 0:
+            return None
+        # Capacity escalation: when faces occupy slots beyond max_faces,
+        # double the face capacity (up to max_escalations times, bounded
+        # by top_k) so those faces get embedded instead of skipped.
+        capacity = self.max_faces
+        attempts = 0
+        while busiest > capacity and attempts < self.max_escalations:
+            attempts += 1
+            capacity = min(capacity * 2, mask_full.shape[1])
+            self.escalations["embed"] += 1
+        mask = mask_full[:, :capacity]
+        lmks = out["landmarks"][:, :capacity]
+        k = self._select_embed_bucket(min(busiest, capacity), capacity)
+        packed = np.zeros((b, k, 7), np.float32)
+        idx = np.argwhere(mask[:, :k])
+        mats = alignment_matrices(
+            lmks[idx[:, 0], idx[:, 1]].astype(np.float32)
+        )  # one batched solve
+        packed[idx[:, 0], idx[:, 1], :6] = mats.reshape(len(idx), 6)
+        packed[idx[:, 0], idx[:, 1], 6] = 1.0
+        return packed, k
+
+    @_device_work
+    def _dispatch_adaptive_embed(self, out, frames_dev):
+        """Plan and enqueue the bucketed warp+embed program over the
+        resident full frames. Returns the in-flight fetch, or None when no
+        faces were found (no program runs at all)."""
+        plan = self._plan_adaptive_embed(out, frames_dev.shape[0])
+        if plan is None:
+            return None
+        packed, k = plan
+        emb = self._warp_embed_fn(k, frames_dev.shape)(
+            frames_dev, self._put_batch(packed))
+        return _Fetch(emb)
+
+    def _collect_adaptive_embed(self, plan, n):
+        """Fetch the adaptive embed result and place it in the
+        (n, >=max_faces, dim) grid the fused path produces (wider than
+        max_faces only when capacity escalation fired for this batch)."""
+        if plan is None:
+            return (
+                np.zeros((n, self.max_faces, EMBEDDING_DIM), np.float32),
+                np.zeros((n, self.max_faces), bool),
+            )
+        emb = plan.numpy()[:n]
+        k = emb.shape[1]
+        dim = emb.shape[-1] - 1  # packed as features + validity flag
+        rows = max(self.max_faces, k)
+        grid = np.zeros((n, rows, dim), np.float32)
+        grid_mask = np.zeros((n, rows), bool)
+        grid[:, :k] = emb[..., :dim]
+        grid_mask[:, :k] = emb[..., dim] > 0.5
+        return grid, grid_mask
+
+    # The 'host' transfer plan's parts (ROADMAP.md, Queue 1 item 9).
+
+    def _host_prep_resize(self, frames):
+        raise _not_ported("transfer_plan='host'", 9)
+
+    def _host_prep_upload(self, prep):
+        raise _not_ported("transfer_plan='host'", 9)
+
+    def _host_prep(self, frames):
+        raise _not_ported("transfer_plan='host'", 9)
+
+    def _host_resize(self, frames, out_h, out_w):
+        raise _not_ported("the host resize", 9)
+
+    def _host_warp_fn(self):
+        raise _not_ported("the host face warp", 9)
+
+    def _embed_pool(self):
+        raise _not_ported("the host plan's embed worker", 9)
+
+    def _dispatch_adaptive_embed_host(self, out, frames, full_shape, n,
+                                      stage=None):
+        raise _not_ported("transfer_plan='host'", 9)
+
+    def close(self):
+        """Release host-side resources. The JAX class frees its 'host'
+        plan's embed worker here; the device plan holds none, so this is a
+        no-op kept for the interface. Idempotent."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def process_stream(self, batches, depth=None, prefetch=True):
+        """Software-pipelined batch processing.
+
+        ``depth`` batches are kept dispatched ahead of the oldest
+        unfinished batch (default: config ``pipeline_depth``), so while
+        batch *i*'s results download and its host stages run, batch *i+1*
+        is computing and batch *i+2* is crossing the host->device link.
+
+        With ``prefetch``, uploads move to a background thread
+        (``io.video.prefetch.threaded_device_put`` with :meth:`put_frames`).
+
+        Yields one result dict per input batch, in order.
+        """
+        from collections import deque
+
+        if depth is None:
+            from terran_tpu_torch.config import get_config
+
+            depth = get_config().pipeline_depth
+        depth = max(1, depth)
+
+        if prefetch:
+            from terran_tpu_torch.io.video.prefetch import (
+                threaded_device_put,
+            )
+
+            put = self.put_frames
+            if self.timeline is not None:
+                # The k-th batch through the worker is dispatch id
+                # _batch_seq + k, as long as this stream is the only
+                # dispatcher while the timeline is attached.
+                import itertools
+
+                ids = itertools.count(self._batch_seq)
+
+                def put(x, _put=self.put_frames):
+                    with self.timeline.span(next(ids), "h2d_thread",
+                                            getattr(x, "nbytes", 0)):
+                        return _put(x)
+
+            batches = threaded_device_put(batches, depth=depth, put=put)
+
+        # Two-phase finalization: once a batch leaves the dispatch window,
+        # phase A (advance_batch: decision fetches + adaptive dispatches)
+        # runs immediately, but phase B (collect_batch: the heavy fetches +
+        # assembly) waits one further slot, so the limb/embed programs
+        # dispatched in phase A compute while the NEXT batch advances.
+        pending = deque()
+        advanced = deque()
+        for frames in batches:
+            pending.append(self.dispatch_batch(frames))
+            if len(pending) > depth:
+                advanced.append(self.advance_batch(*pending.popleft()))
+            if len(advanced) > 1:
+                yield self.collect_batch(advanced.popleft())
+        while pending:
+            advanced.append(self.advance_batch(*pending.popleft()))
+            if len(advanced) > 1:
+                yield self.collect_batch(advanced.popleft())
+        while advanced:
+            yield self.collect_batch(advanced.popleft())
+
+    def faces_from(self, out):
+        """Convert step outputs to the task-API list-of-dicts contract."""
+        faces = []
+        mask = out["mask"]
+        for i in range(mask.shape[0]):
+            keep = mask[i]
+            faces.append([
+                {"bbox": b, "landmarks": l, "score": s}
+                for b, l, s in zip(
+                    out["boxes"][i][keep], out["landmarks"][i][keep],
+                    out["scores"][i][keep],
+                )
+            ])
+        return faces

@@ -4,6 +4,7 @@
 callers that want the CPU (the tests) say ``device="cpu"``.
 """
 
+import functools
 import os
 from dataclasses import dataclass
 
@@ -22,6 +23,16 @@ def default_device():
 def resolve_device(device=None):
     """``device`` as a ``torch.device``, ``default_device()`` when None."""
     return default_device() if device is None else torch.device(device)
+
+
+@functools.lru_cache(maxsize=64)
+def device_constant(values, dtype, device):
+    """The nested tuple ``values`` as a ``dtype`` tensor on ``device``, made
+    once per (values, dtype, device). A copy from host memory to the card
+    waits for everything queued on the stream, so ops that the pipeline
+    enqueues ahead of the card take their constant tables from here."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 @dataclass(frozen=True)

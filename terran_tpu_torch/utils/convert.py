@@ -320,6 +320,16 @@ def params_from_jax(params):
     return out
 
 
+def as_state_dict(params):
+    """This package's state dict from either form a caller holds: a state
+    dict ('.'-joined keys) passes through; a ``terran_tpu`` params pytree
+    (nested dicts, as ``terran_tpu.pipeline.PerceptionPipeline`` takes
+    them) goes through :func:`params_from_jax`."""
+    if any(isinstance(value, dict) for value in params.values()):
+        return params_from_jax(params)
+    return params
+
+
 # ---------------------------------------------------------------------------
 # The converted store: flat .npz with '/'-joined keys
 # ---------------------------------------------------------------------------

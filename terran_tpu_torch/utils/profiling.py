@@ -1,6 +1,21 @@
-"""Logging for the package."""
+"""Logging and host-side timing for the package.
 
+- ``get_logger``: the package's logger.
+- ``StageTimer``: per-stage wall time and item counts, which the
+  pipeline's ``timer=`` hook records into.
+- ``Timeline``: per-batch spans against one origin, which the pipeline's
+  ``timeline`` attribute records into.
+
+``StageTimer`` and ``Timeline`` are copies of
+``terran_tpu/utils/profiling.py``'s. Both read the host clock: on the
+card a dispatch span is the time to enqueue the work, not the device
+time, as under JAX's asynchronous dispatch.
+"""
+
+import contextlib
 import logging
+import time
+from collections import defaultdict
 
 
 def get_logger(name="terran_tpu_torch"):
@@ -13,3 +28,96 @@ def get_logger(name="terran_tpu_torch"):
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
     return logger
+
+
+class StageTimer:
+    """Accumulates per-stage wall time and item counts."""
+
+    def __init__(self):
+        self.times = defaultdict(float)
+        self.counts = defaultdict(int)
+        self.items = defaultdict(int)
+
+    def record(self, name, seconds, items=0):
+        self.times[name] += seconds
+        self.counts[name] += 1
+        self.items[name] += items
+
+    @contextlib.contextmanager
+    def stage(self, name, items=0):
+        start = time.perf_counter()
+        yield
+        self.record(name, time.perf_counter() - start, items)
+
+    def summary(self):
+        """Per-stage dict of total seconds, calls, mean latency, items/sec."""
+        out = {}
+        for name, total in self.times.items():
+            calls = self.counts[name]
+            items = self.items[name]
+            out[name] = {
+                "total_s": round(total, 4),
+                "calls": calls,
+                "mean_ms": round(1000 * total / max(calls, 1), 3),
+                "items_per_s": (
+                    round(items / total, 2) if total > 0 and items else None
+                ),
+            }
+        return out
+
+    def reset(self):
+        self.times.clear()
+        self.counts.clear()
+        self.items.clear()
+
+
+class Timeline:
+    """Per-batch event timeline for pipeline serialization analysis.
+
+    Records (batch id, event, start, end, bytes) spans against one shared
+    origin so overlap (or its absence) between uploads, dispatches, and
+    fetches across batches is directly visible. Wall spans measure where
+    the HOST waited.
+    """
+
+    def __init__(self):
+        self.events = []
+        self.origin = time.perf_counter()
+
+    @contextlib.contextmanager
+    def span(self, batch, event, nbytes=0):
+        start = time.perf_counter()
+        yield
+        self.events.append(
+            (batch, event, start - self.origin,
+             time.perf_counter() - self.origin, int(nbytes))
+        )
+
+    def mark(self, batch, event, nbytes=0):
+        t = time.perf_counter() - self.origin
+        self.events.append((batch, event, t, t, int(nbytes)))
+
+    def rows(self):
+        """Compact [batch, event, start_ms, dur_ms, bytes] rows."""
+        return [
+            [b, e, round(s * 1000, 1), round((t - s) * 1000, 1), n]
+            for b, e, s, t, n in sorted(self.events, key=lambda r: r[2])
+        ]
+
+    def gaps(self):
+        """Host-idle gaps > 1 ms between consecutive spans per batch —
+        time the main thread spent elsewhere (another batch's stages, or
+        genuinely idle)."""
+        out = []
+        by_batch = defaultdict(list)
+        for b, e, s, t, _ in self.events:
+            by_batch[b].append((s, t, e))
+        for b, spans in by_batch.items():
+            spans.sort()
+            for (s0, t0, e0), (s1, t1, e1) in zip(spans, spans[1:]):
+                if s1 - t0 > 0.001:
+                    out.append(
+                        [b, f"{e0}->{e1}", round(t0 * 1000, 1),
+                         round((s1 - t0) * 1000, 1)]
+                    )
+        return out

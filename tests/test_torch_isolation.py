@@ -33,6 +33,7 @@ SCRIPT = textwrap.dedent(f"""
     import terran_tpu_torch
     from terran_tpu_torch.face.detection import RetinaFaceDetector
     from terran_tpu_torch.face.recognition import ArcFaceRecognizer
+    from terran_tpu_torch.pipeline import PerceptionPipeline
     from terran_tpu_torch.pose.openpose import OpenPoseEstimator
     from terran_tpu_torch.utils.convert import (
         convert_arcface, convert_openpose, convert_retinaface,
@@ -74,6 +75,23 @@ SCRIPT = textwrap.dedent(f"""
         random_arcface_state_dict(rng)), device="cpu")
     feats = rec.call(list(images), [faces[0][:1]])
     assert feats[0].shape == (1, 512), feats[0].shape
+
+    try:
+        PerceptionPipeline(det_params={{}}, rec_params={{}}, pose_params={{}})
+    except RuntimeError as exc:
+        assert "no CUDA device" in str(exc), exc
+    else:
+        raise SystemExit("PerceptionPipeline picked a device without a card")
+    pipe = PerceptionPipeline(
+        det_params=convert_retinaface(random_retinaface_state_dict(rng)),
+        rec_params=convert_arcface(random_arcface_state_dict(rng)),
+        pose_params=convert_openpose(sd), device="cpu", det_short_side=48,
+        pose_short_side=48, top_k=8, max_faces=1, max_peaks=4,
+        max_escalations=0)
+    result = pipe.process_batch(images)
+    assert result["boxes"].shape == (1, 8, 4), result["boxes"].shape
+    assert result["embeddings"].shape == (1, 1, 512)
+    assert len(result["poses"]) == 1
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
