@@ -11,7 +11,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
 2. build the hand-written kernels with nvcc, one build per source, in
    parallel: terran_tpu_torch/csrc/fused_peaks.cu (the tile scan and the
    plane merge) and terran_tpu_torch/csrc/nms.cu (the IoU bitmask and the
-   greedy sweep);
+   greedy sweep); then the native pose assembly
+   (terran_tpu_torch/native/assembly.cpp) with g++, which must load;
 3. hold the peak kernels against their plain PyTorch version on the card, exact
    equality of coords, valid, overflow and scores, on random fields,
    off-grid gaussian bumps, a height and width off the kernel's tile grid,
@@ -31,7 +32,10 @@ Phases (any failure raises, exits nonzero and prints no result line):
    above A and N=1; hold the mask kernel's words alone against the packed
    plain IoU bits on the model's boxes at K=1024; time the suppression
    with CUDA events at N=8, K=64, 256 and 1024, and count the chunks its
-   sweep decides in the busiest image;
+   sweep decides in the busiest image; the limb scores sampled from the
+   x1 PAF field (``limb_scores_sampled``) equal to the materialised form
+   on the model's PAFs and peaks at the pipeline's K=16, both timed with
+   CUDA events;
 4. the pose task API (``Estimation``) on 8 seeded 1080p
    frames at the default short side 184, full OpenPose with random
    reference-format weights, bf16; the peak kernels' launch count must
@@ -52,19 +56,31 @@ Phases (any failure raises, exits nonzero and prints no result line):
    it prints frames/s, the ``StageTimer`` summary and the launches per
    batch; then ``max_escalations=2`` on 2 frames must raise every
    escalation counter (detect, pose, embed);
+   the same pipeline under ``transfer_plan='host'`` (host resizes, host
+   face warps, crops uploaded), once with bench.py's ``host_resize``
+   ('auto': OpenCV where it imports) and once with the exact chain (the
+   numpy warp): each ``warmup``, one batch, one
+   ``dispatch_batch`` of a prepared batch under the sync check, 3 timed
+   sweeps, both kernels exactly 2 launches per batch; it prints frames/s
+   beside the device plan's, the upload bytes a frame of both plans and
+   the plan that bench.py's rule would pick;
+   host assembly, native against Python, on synthetic decode outputs of a
+   batch at K=16 with accepted limbs: times, and the same humans;
 5. float32 with TF32 off: the fused path and the materialised path
    (``fused_peaks='off'``) give equal keypoints, and the card's forward
    agrees with the CPU's on a small input; the same for RetinaFace and
    ArcFace, and the detect step's keep masks on the card equal the CPU's;
    the pipeline's ``process_stream`` equals its ``process_batch`` on the
    card, and the card's pipeline agrees with a CPU pipeline on a small
-   input (``pipeline_float32_phase`` states the tolerances);
+   input (``pipeline_float32_phase`` states the tolerances); the host
+   plan against the device plan on the card at dyadic scales
+   (``pipeline_host_float32_phase``);
 6. ``torch.profiler``: the CUDA kernels of one peak-scan call (at most 2),
    the kernels' device time at K=16, 32 and 128, and the CUDA kernels of
    one NMS suppression call (2: mask and sweep) with each one's device
    time at K=64, 256 and 1024;
-7. JSON lines describing the pipeline and the kernels, then the card's
-   line, then the result line.
+7. JSON lines describing the pipeline, its host plan and the kernels,
+   then the card's line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -625,13 +641,21 @@ def pipeline_kwargs(params, **overrides):
                 pose_params=pose, **overrides)
 
 
-def pipeline_phase(params, card, task_ms):
+def pipeline_batches():
+    """PIPE_BATCHES seeded batches of BATCH 1080p frames."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 2)
+    return [rng.integers(0, 255, (BATCH,) + FRAME + (3,), dtype=np.uint8)
+            for _ in range(PIPE_BATCHES)]
+
+
+def pipeline_phase(params, batches, card, task_ms):
     """The perception pipeline at bench.py's configuration, bf16: warmup,
     one batch, then PIPE_SWEEPS timed ``process_stream`` sweeps over
-    PIPE_BATCHES seeded batches, with both kernels' launches counted over
-    the sweeps; then an escalating run that must raise every escalation
-    counter. Returns the pipeline's fields for the result lines."""
-    import numpy as np
+    ``batches``, with both kernels' launches counted over the sweeps; then
+    an escalating run that must raise every escalation counter. Returns
+    the pipeline's fields for the result lines."""
     import torch
 
     from terran_tpu_torch.ops import fused_peaks as fp
@@ -644,9 +668,6 @@ def pipeline_phase(params, card, task_ms):
     for model in (pipe.det_model, pipe.rec_model, pipe.pose_model):
         if model.compute_dtype != torch.bfloat16:
             raise AssertionError("the pipeline must run bf16")
-    rng = np.random.default_rng(SEED + 2)
-    batches = [rng.integers(0, 255, (BATCH,) + FRAME + (3,), dtype=np.uint8)
-               for _ in range(PIPE_BATCHES)]
     start = time.perf_counter()
     programs = pipe.warmup(BATCH, *FRAME)
     warm_s = time.perf_counter() - start
@@ -666,6 +687,7 @@ def pipeline_phase(params, card, task_ms):
         pass  # ramps the uploader thread and queues, as bench.py does
 
     timer.reset()
+    uploaded = pipe.upload_bytes
     fp.find_peaks_fused.launches = 0
     nms.suppress.launches = 0
     fps = []
@@ -676,6 +698,7 @@ def pipeline_phase(params, card, task_ms):
         for out in outs:
             check_pipeline_result(out, BATCH, PIPE_CONFIG)
     swept = PIPE_SWEEPS * PIPE_BATCHES
+    upload_per_frame = (pipe.upload_bytes - uploaded) / (swept * BATCH)
     launches = {"fused_peaks": fp.find_peaks_fused.launches,
                 "nms": 2 * nms.suppress.launches}
     # Both kernels on every batch: a peak scan (scan + merge) and an NMS
@@ -711,7 +734,8 @@ def pipeline_phase(params, card, task_ms):
     return {"fps": fps, "fps_median": fps_median, "batch_ms": batch_ms,
             "warmup_programs": programs, "warmup_s": warm_s,
             "batches": swept, "launches": launches, "stages": summary,
-            "task_ms": task_ms, "escalations": esc.escalations}
+            "task_ms": task_ms, "escalations": esc.escalations,
+            "upload_bytes_per_frame": upload_per_frame}
 
 
 def check_pipeline_result(out, n, config):
@@ -845,6 +869,264 @@ def peak_agreement(got, ref):
     return matched, unmatched, total
 
 
+def native_phase():
+    """Build the native pose assembly with g++ and require it loaded: the
+    pipeline's assembly would otherwise fall back to Python unseen.
+    Returns the seconds of the first load, build included."""
+    import shutil
+
+    from terran_tpu_torch import native
+
+    if not native.native_available():
+        raise AssertionError(f"the native assembly did not load: "
+                             f"{native.build_error()}")
+    log(f"build: native assembly (terran_tpu_torch/native/assembly.cpp, "
+        f"{shutil.which('g++')}) loaded in {native.build_seconds():.2f} s")
+    return native.build_seconds()
+
+
+def sampled_limbs_phase(paf, coords, valid, card):
+    """Limb scores sampled from the x1 PAF field against the materialised
+    x8 field, on the model's PAFs and peaks: equal (reg bit for bit, the
+    same accept flags), and both timed with CUDA events. Returns their
+    fields."""
+    import torch
+
+    from terran_tpu_torch.config import get_config
+    from terran_tpu_torch.ops.pose_decode import (
+        limb_scores, limb_scores_sampled,
+    )
+    from terran_tpu_torch.ops.upsample import upsample_bicubic
+
+    threshold = get_config().paf_midpoint_threshold
+
+    def materialised():
+        with torch.inference_mode():
+            return limb_scores(upsample_bicubic(paf, 8), coords, valid,
+                               threshold)
+
+    def sampled():
+        with torch.inference_mode():
+            return limb_scores_sampled(paf, 8, coords, valid, threshold)
+
+    (reg_m, acc_m), (reg_s, acc_s) = materialised(), sampled()
+    torch.cuda.synchronize()
+    if not (torch.equal(reg_m, reg_s) and torch.equal(acc_m, acc_s)):
+        raise AssertionError("sampled and materialised limb scores differ")
+    ms_m, ms_s = time_ms(materialised), time_ms(sampled)
+    k = coords.shape[-2]
+    log(f"limb scores at K={k} on the model's PAFs {tuple(paf.shape)} "
+        f"({card}): materialised (x8 upsample + gather) {ms_m:.4f} ms, "
+        f"sampled {ms_s:.4f} ms; equal ({int(valid.sum())} peaks, "
+        f"{int(acc_m.sum())} accepted pairs of {acc_m.numel()})")
+    return {"k": k, "materialised_ms": ms_m, "sampled_ms": ms_s,
+            "equal": True}
+
+
+def pipeline_host_phase(params, batches, card, device, host_resize="auto"):
+    """The pipeline at bench.py's configuration under the 'host' transfer
+    plan, bf16, with ``host_resize`` ('auto', bench.py's, takes OpenCV
+    where it imports): warmup, one batch, one ``dispatch_batch`` of a
+    prepared batch that must make no synchronizing call, then PIPE_SWEEPS
+    timed ``process_stream`` sweeps, both kernels exactly 2 launches a
+    batch. ``device`` is the device plan's fields from this run. Returns
+    the fields of the ``pipeline_host`` line."""
+    import torch
+
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+    from terran_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    pipe = PerceptionPipeline(**pipeline_kwargs(
+        params, timer=timer, transfer_plan="host", host_resize=host_resize))
+    resize = "cv2" if pipe._uses_cv2() else "exact"
+    start = time.perf_counter()
+    programs = pipe.warmup(BATCH, *FRAME)
+    warm_s = time.perf_counter() - start
+    check_pipeline_result(pipe.process_batch(batches[0]), BATCH, PIPE_CONFIG)
+    prep = pipe._host_prep(batches[0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dispatched = pipe.dispatch_batch(prep)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check_pipeline_result(pipe.finalize_batch(*dispatched), BATCH,
+                          PIPE_CONFIG)
+    for _ in pipe.process_stream(batches[:2], depth=PIPE_DEPTH):
+        pass
+
+    timer.reset()
+    uploaded = pipe.upload_bytes
+    fp.find_peaks_fused.launches = 0
+    nms.suppress.launches = 0
+    fps = []
+    for _ in range(PIPE_SWEEPS):
+        start = time.perf_counter()
+        outs = list(pipe.process_stream(batches, depth=PIPE_DEPTH))
+        fps.append(BATCH * PIPE_BATCHES / (time.perf_counter() - start))
+        for out in outs:
+            check_pipeline_result(out, BATCH, PIPE_CONFIG)
+    swept = PIPE_SWEEPS * PIPE_BATCHES
+    upload_per_frame = (pipe.upload_bytes - uploaded) / (swept * BATCH)
+    launches = {"fused_peaks": fp.find_peaks_fused.launches,
+                "nms": 2 * nms.suppress.launches}
+    pipe.close()
+    for name, count in launches.items():
+        if count != 2 * swept:
+            raise AssertionError(f"the host plan launched {name}'s kernels "
+                                 f"{count} times over {swept} batches")
+    fps_median = sorted(fps)[len(fps) // 2]
+    summary = timer.summary()
+    stages = {name: 1e3 * summary[name]["total_s"] / swept
+              for name in ("host_resize_thread", "h2d_thread",
+                           "embed_host_warp", "embed_dispatch")}
+    picks = "host" if fps_median > device["fps_median"] else "device"
+    log(f"pipeline, transfer_plan='host' ({card}): host_resize "
+        f"'{host_resize}', so {resize}; "
+        f"warmup {programs} programs in {warm_s:.3f} s; frames/s per sweep "
+        + ", ".join(f"{f:.2f}" for f in fps)
+        + f"; median {fps_median:.2f} frames/s = "
+        f"{BATCH * 1e3 / fps_median:.2f} ms/batch, against the device "
+        f"plan's {device['fps_median']:.2f} in this run (bench.py's rule "
+        f"picks '{picks}'); upload bytes a frame {upload_per_frame:.0f} "
+        f"(device plan {device['upload_bytes_per_frame']:.0f}); stage ms "
+        "per batch " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; kernel launches per batch: fused_peaks "
+        f"{launches['fused_peaks'] / swept:g}, nms {launches['nms'] / swept:g}")
+    log(f"pipeline host plan ({resize}) stage timer (host wall time, the "
+        "sweeps): " + json.dumps(summary))
+    return {"fps": fps, "fps_median": fps_median,
+            "batch_ms": BATCH * 1e3 / fps_median, "warmup_programs": programs,
+            "warmup_s": warm_s, "batches": swept, "launches": launches,
+            "stages_ms_per_batch": stages, "stages": summary,
+            "upload_bytes_per_frame": upload_per_frame, "picks": picks,
+            "host_resize": resize}
+
+
+def synthetic_decode_outputs(rng, k, frames):
+    """Per frame, pose decode outputs as the device gives them: valid
+    peaks a prefix of each part's K slots, limbs accepted only between
+    valid slots (30% of those pairs)."""
+    import numpy as np
+
+    from terran_tpu_torch.ops.pose_decode import (
+        LIMBSEQ, NUM_LIMBS, NUM_PARTS,
+    )
+
+    out = []
+    for _ in range(frames):
+        coords = rng.integers(0, 1000, (NUM_PARTS, k, 2)).astype(np.int32)
+        scores = rng.uniform(0.1, 1.0, (NUM_PARTS, k)).astype(np.float32)
+        counts = rng.binomial(k, 0.9, NUM_PARTS)
+        valid = np.arange(k)[None, :] < counts[:, None]
+        reg = rng.uniform(-0.5, 1.0, (NUM_LIMBS, k, k)).astype(np.float32)
+        accept = rng.uniform(size=(NUM_LIMBS, k, k)) < 0.3
+        for limb, (src, dst) in enumerate(LIMBSEQ):
+            accept[limb] &= valid[src][:, None] & valid[dst][None, :]
+        out.append((coords, scores, valid, reg, accept))
+    return out
+
+
+def assembly_phase(card):
+    """Host assembly of a batch of BATCH frames at the pipeline's K,
+    native against Python: host ms a batch (median of 5 alternating runs
+    each) and the same humans (peak ids and counts equal, score sums
+    within 1e-9). Returns its fields."""
+    import numpy as np
+
+    from terran_tpu_torch.pose.assembly import assemble_humans
+
+    k = PIPE_CONFIG["max_peaks"]
+    outputs = synthetic_decode_outputs(np.random.default_rng(SEED + 4), k,
+                                       BATCH)
+    times = {True: [], False: []}
+    humans = {}
+    for _ in range(5):
+        for use_native in (True, False):
+            start = time.perf_counter()
+            humans[use_native] = [
+                assemble_humans(*o, use_native=use_native)[1]
+                for o in outputs]
+            times[use_native].append(1e3 * (time.perf_counter() - start))
+    for got, expected in zip(humans[True], humans[False]):
+        if (got.shape != expected.shape
+                or not np.array_equal(got[:, :18], expected[:, :18])
+                or not np.array_equal(got[:, 19], expected[:, 19])
+                or not np.allclose(got[:, 18], expected[:, 18], rtol=0,
+                                   atol=1e-9)):
+            raise AssertionError("native and Python assembly differ")
+    native_ms, python_ms = (sorted(times[u])[2] for u in (True, False))
+    accepted = sum(int(o[4].sum()) for o in outputs)
+    people = sum(len(h) for h in humans[True])
+    log(f"host assembly of {BATCH} frames at K={k} ({card} host): native "
+        f"{native_ms:.3f} ms, Python {python_ms:.3f} ms a batch (median of "
+        f"5); {accepted} accepted limb pairs, {people} humans, the same")
+    return {"k": k, "native_ms": native_ms, "python_ms": python_ms,
+            "accepted_pairs": accepted, "humans": people}
+
+
+def pipeline_host_float32_phase(params, rng, dev, card):
+    """float32, TF32 off, deterministic cuDNN, at dyadic scales (2 frames
+    of 736x1312, det short side 368 = x1/2, pose 184 = x1/4, where the
+    host's exact bilinear equals the card's): the host plan against the device
+    plan on the card. Masks, overflow flags, boxes, landmarks, scores and
+    keypoints equal; embeddings within atol 2e-4 (the JAX package's own
+    tolerance between its plans); the host warp's crops within one count
+    of the card's warp (a .5 tie may round the other way)."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.ops.warp import (
+        alignment_matrices, warp_affine_batch, warp_affine_u8_batch_numpy,
+    )
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+
+    config = dict(compute_dtype=torch.float32, det_short_side=368,
+                  pose_short_side=184)
+    frames = rng.integers(0, 255, (2, 736, 1312, 3), dtype=np.uint8)
+    ref = PerceptionPipeline(**pipeline_kwargs(params, **config)
+                             ).process_batch(frames)
+    with PerceptionPipeline(**pipeline_kwargs(
+            params, transfer_plan="host", host_resize="exact",
+            **config)) as host:
+        got = host.process_batch(frames)
+    for key in ("boxes", "landmarks", "scores", "mask", "det_overflow",
+                "pose_overflow", "embeddings_mask"):
+        if not np.array_equal(got[key], ref[key]):
+            raise AssertionError(f"host vs device plan: {key} differs")
+    if ([[p["keypoints"].tolist() for p in f] for f in got["poses"]]
+            != [[p["keypoints"].tolist() for p in f] for f in ref["poses"]]):
+        raise AssertionError("host vs device plan: keypoints differ")
+    valid = ref["embeddings_mask"]
+    err = float(np.abs(got["embeddings"] - ref["embeddings"]).max())
+    if not err <= 2e-4:
+        raise AssertionError(f"host vs device plan: embeddings differ by "
+                             f"{err}")
+    differing = worst = 0
+    for i in range(len(frames)):
+        slots = np.flatnonzero(valid[i])
+        mats = alignment_matrices(
+            ref["landmarks"][i, slots].astype(np.float32))
+        on_host = warp_affine_u8_batch_numpy(frames[i], mats)
+        with torch.inference_mode():
+            on_card = torch.round(warp_affine_batch(
+                torch.from_numpy(frames[i]).to(dev), mats)).cpu().numpy()
+        diff = np.abs(on_host.astype(np.float32) - on_card)
+        differing += int((diff > 0).sum())
+        worst = max(worst, float(diff.max(initial=0.0)))
+    if worst > 1:
+        raise AssertionError(f"host vs card warp: {worst} counts apart")
+    log(f"float32 host vs device plan on the card (2 x 736x1312, det x1/2, "
+        f"pose x1/4): masks, boxes, scores, keypoints equal "
+        f"({int(ref['mask'].sum())} faces, {int(valid.sum())} embedded, "
+        f"{sum(map(len, ref['poses']))} humans); embeddings within "
+        f"{err:.2e}; host vs card warp: {differing} crop values differ, by "
+        f"at most {worst:g} ({card})")
+    return {"embedding_err": err, "crop_values_differing": differing}
+
+
 def main():
     import torch
 
@@ -887,6 +1169,7 @@ def main():
     log(f"build: fused_peaks.cu (scan + merge kernels) and nms.cu "
         f"(mask + sweep kernels) in {time.perf_counter() - start:.2f} s "
         f"(nvcc {nvcc_s}; 0 = cached)")
+    native_s = native_phase()
 
     # 3. Kernel vs plain version on the card.
     rng = np.random.default_rng(SEED)
@@ -898,7 +1181,7 @@ def main():
     from terran_tpu_torch.ops.pose_decode import normalize_images
 
     with torch.inference_mode():
-        _, heat = model_est.model(
+        paf, heat = model_est.model(
             normalize_images(resized).to(model_est.model.compute_dtype)
         )
     heat19 = heat.float()
@@ -996,6 +1279,12 @@ def main():
         f"{k_main}; bound {bound[k_pipe][0]:.5f} / {bound_ms:.5f} ms "
         f"({bound_by})")
 
+    # Limb scores at the pipeline's K=16 on the model's PAFs and peaks:
+    # the sampled form against the materialised one the pipeline runs.
+    peak_coords, _, peak_valid, _ = fp.find_peaks_fused(strided, 0.1,
+                                                         k_pipe)
+    sampled = sampled_limbs_phase(paf.float(), peak_coords, peak_valid, card)
+
     # The NMS kernel against its plain version, on the detector's own
     # boxes among others.
     face_rng = np.random.default_rng(SEED + 1)
@@ -1056,8 +1345,17 @@ def main():
     # The perception pipeline, this slice's main path: detect + embed +
     # pose over batches, both kernels on every batch.
     pipe_params = (rf_params, arc_params, state_dict)
-    pipe = pipeline_phase(pipe_params, card, {
+    batches = pipeline_batches()
+    pipe = pipeline_phase(pipe_params, batches, card, {
         "pose": batch_ms, "detection": det_ms, "recognition": rec_ms})
+    # The same path under the 'host' transfer plan as bench.py runs it,
+    # and with the exact chain (the numpy warp) whatever is installed;
+    # then host assembly.
+    pipe_host = pipeline_host_phase(pipe_params, batches, card, pipe)
+    pipe_exact = pipeline_host_phase(pipe_params, batches, card, pipe,
+                                     host_resize="exact")
+    del batches
+    assembly = assembly_phase(card)
 
     # 5. float32, TF32 off: fused vs materialised, card vs CPU.
     torch.backends.cudnn.allow_tf32 = False
@@ -1104,6 +1402,7 @@ def main():
 
     face_float32_phase(rf_params, arc_params, face_rng, dev)
     pipeline_float32_phase(pipe_params, face_rng, dev, card)
+    host_f32 = pipeline_host_float32_phase(pipe_params, face_rng, dev, card)
 
     # 6. The profiler, last: it stays attached to the process and slows
     #    later launches. One call's CUDA kernels, then the kernels' device
@@ -1152,6 +1451,30 @@ def main():
         "warmup_programs": pipe["warmup_programs"],
         "escalations": pipe["escalations"], "card": card,
     }}))
+    log(json.dumps({"pipeline_host": {
+        "frames_per_s": pipe_host["fps_median"],
+        "frames_per_s_sweeps": pipe_host["fps"],
+        "ms_per_batch": pipe_host["batch_ms"],
+        "device_plan_frames_per_s": pipe["fps_median"],
+        "device_plan_frames_per_s_sweeps": pipe["fps"],
+        "upload_bytes_per_frame": {
+            "host": pipe_host["upload_bytes_per_frame"],
+            "device": pipe["upload_bytes_per_frame"]},
+        "stage_ms_per_batch": pipe_host["stages_ms_per_batch"],
+        "bench_rule_picks": pipe_host["picks"],
+        "host_resize": pipe_host["host_resize"],
+        "exact_chain": {key: pipe_exact[key] for key in (
+            "fps", "fps_median", "batch_ms", "stages_ms_per_batch",
+            "upload_bytes_per_frame", "picks")},
+        "launches_per_batch": {name: count / pipe_host["batches"] for
+                               name, count in pipe_host["launches"].items()},
+        "warmup_programs": pipe_host["warmup_programs"],
+        "float32_vs_device_plan": host_f32,
+        "assembly_ms_per_batch": assembly,
+        "native_build_s": native_s,
+        "limb_scores": sampled,
+        "card": card,
+    }}))
     log(json.dumps({"kernels": [{
         "name": "fused_peaks",
         "route": "cuda",
@@ -1177,6 +1500,9 @@ def main():
         "pipeline_batches": pipe["batches"],
         "pipeline_launches_per_batch":
             pipe["launches"]["fused_peaks"] / pipe["batches"],
+        "pipeline_host_launches": pipe_host["launches"]["fused_peaks"],
+        "pipeline_host_launches_per_batch":
+            pipe_host["launches"]["fused_peaks"] / pipe_host["batches"],
         "library_ms": None,
         "card": card,
     }, {
@@ -1216,6 +1542,9 @@ def main():
         "pipeline_batches": pipe["batches"],
         "pipeline_launches_per_batch":
             pipe["launches"]["nms"] / pipe["batches"],
+        "pipeline_host_launches": pipe_host["launches"]["nms"],
+        "pipeline_host_launches_per_batch":
+            pipe_host["launches"]["nms"] / pipe_host["batches"],
         "library_ms": None,
         "card": card,
     }]}))

@@ -21,7 +21,8 @@ from terran_tpu_torch.models.arcface import (
 )
 from terran_tpu_torch.ops.warp import alignment_matrices, warp_affine_batch
 from terran_tpu_torch.runtime import (
-    PARAMS_KEEP_F32, cast_params_for_compute, default_policy, resolve_device,
+    PARAMS_KEEP_F32, cast_params_for_compute, check_precision,
+    default_policy, resolve_device,
 )
 
 TASK_NAME = "face-recognition"
@@ -33,12 +34,20 @@ class ArcFaceRecognizer:
     CHECKPOINT_CLASS = "terran_tpu_torch.face.recognition.ArcFaceRecognizer"
 
     def __init__(self, params=None, compute_dtype=None, device=None,
-                 image_side=None):
+                 image_side=None, embed_precision=None):
         """``params``: a :class:`FaceResNet100` state dict (default: the
         converted checkpoint store). ``device``: where the model runs, the
-        CUDA card unless the caller names another (``"cpu"``)."""
+        CUDA card unless the caller names another (``"cpu"``).
+        ``embed_precision``: 'native' (default: config
+        ``embed_precision``); 'int8' raises until it is ported."""
+        cfg = get_config()
+        self.embed_precision = check_precision(
+            "embed_precision",
+            cfg.embed_precision if embed_precision is None
+            else embed_precision,
+        )
         if image_side is None:
-            image_side = get_config().recognition_crop_side
+            image_side = cfg.recognition_crop_side
         if params is None:
             params = load_checkpoint_params(self.CHECKPOINT_CLASS)
         self.device = resolve_device(device)

@@ -209,6 +209,42 @@ def limb_scores(pafs, coords, valid, thresh_midpoint):
     )
 
 
+def limb_scores_sampled(pafs_small, factor, coords, valid, thresh_midpoint):
+    """:func:`limb_scores` on the x``factor`` bicubic upsample of
+    ``pafs_small`` without building it: each segment point samples the
+    field through ``ops.upsample.sample_bicubic`` (the port of
+    ``terran_tpu/ops/pose_decode.py::limb_scores_sampled``). Bit for bit
+    ``limb_scores(upsample_bicubic(pafs_small, factor), ...)``; the
+    pipeline and ``make_pose_decode`` keep that materialised form.
+
+    pafs_small: (..., h, w, 38), the network-resolution field; coords,
+    valid as :func:`limb_scores`, in the upsampled grid.
+    """
+    from terran_tpu_torch.ops.upsample import sample_bicubic
+
+    h, w = pafs_small.shape[-3:-1]
+    ups_h, ups_w = h * factor, w * factor
+    seg_y, seg_x, dirs, norms, safe_norms, pair_valid = _limb_geometry(
+        coords, valid, ups_h, ups_w
+    )
+    planes = pafs_small.movedim(-1, -3)  # (..., 38, h, w)
+
+    def sample(column):
+        channel = device_constant(tuple(MAP_IDX[:, column].tolist()),
+                                  torch.int64, pafs_small.device)
+        maps = planes.index_select(-3, channel).reshape(-1, h, w)
+        points = seg_y.shape[-3:]
+        return sample_bicubic(
+            maps, factor, seg_y.reshape((-1,) + points),
+            seg_x.reshape((-1,) + points),
+        ).reshape(seg_y.shape)
+
+    return _score_pairs(
+        sample(0), sample(1), dirs, safe_norms, pair_valid, ups_h,
+        thresh_midpoint,
+    )
+
+
 def normalize_images(images):
     """uint8 (N, H, W, 3) -> float32 ``x / 255 - 0.5`` (wrapper.py:116-122)."""
     return _divide(images.to(torch.float32), 255.0) - 0.5

@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from terran_tpu_torch.runtime import device_constant
+
 
 def _cubic_kernel(x, a=-0.75):
     x = abs(float(x))
@@ -76,3 +78,44 @@ def upsample_bicubic(x, factor, axes=(1, 2)):
     for axis in axes:
         x = _upsample_axis(x, factor, axis)
     return x
+
+
+def sample_bicubic(maps, factor, ys, xs):
+    """Values of ``upsample_bicubic(maps, factor, axes=(1, 2))`` at integer
+    positions, without building the upsampled planes (the port of
+    ``terran_tpu/ops/upsample.py::sample_bicubic``).
+
+    The same four taps a sample and the same float32 accumulation order as
+    :func:`_upsample_axis` (H inner, then W), so the values are bit for
+    bit the materialised field's on any device.
+
+    maps: (M, H, W) float planes. ys, xs: (M, ...) integer positions in
+    the upsampled grid, within [0, H*factor) and [0, W*factor). Returns
+    (M, ...) values.
+    """
+    m, h, w = maps.shape
+    bases, weights = _phase_table(factor)
+    bases = device_constant(bases, torch.int64, maps.device)
+    weights = device_constant(weights, maps.dtype, maps.device)
+    flat = maps.reshape(m, h * w)
+
+    def taps(positions, size):
+        positions = positions.to(torch.int64)
+        phase = positions % factor
+        base = positions // factor + bases[phase]
+        return ([(base + offset).clamp_(0, size - 1)
+                 for offset in (-1, 0, 1, 2)], weights[phase])
+
+    ty, wy = taps(ys, h)
+    tx, wx = taps(xs, w)
+
+    def at(index):
+        return flat.gather(1, index.reshape(m, -1)).reshape(index.shape)
+
+    cols = []
+    for tx_col in tx:
+        rows = [at(t * w + tx_col) for t in ty]
+        cols.append(wy[..., 0] * rows[0] + wy[..., 1] * rows[1]
+                    + wy[..., 2] * rows[2] + wy[..., 3] * rows[3])
+    return (wx[..., 0] * cols[0] + wx[..., 1] * cols[1]
+            + wx[..., 2] * cols[2] + wx[..., 3] * cols[3])

@@ -1,7 +1,7 @@
 """Fused full-perception pipeline: detect + align + embed + pose, on the card.
 
-The port of ``terran_tpu/pipeline.py``'s device plan
-(``transfer_plan='device'``) on one CUDA card. A batch of raw uint8 frames
+The port of ``terran_tpu/pipeline.py`` on one CUDA card. Under the device
+plan (``transfer_plan='device'``, the default) a batch of raw uint8 frames
 crosses to the card once and stays there for detection, alignment and
 pose; only fixed-shape result tables come back. Per batch:
 
@@ -20,6 +20,14 @@ pose; only fixed-shape result tables come back. Per batch:
    the PAF x8 upsample and the limb scores run in a second step sized to
    the peaks found.
 
+The 'host' plan (``transfer_plan='host'``) uploads derived inputs
+instead: the frames are resized on the host to the detection and pose
+sizes (``host_resize``: OpenCV's fixed point, or the 'exact' chain, this
+package's bilinear on the CPU), and once the detections are back, an
+embed worker thread warps each face on the host and uploads only the
+(B, k, 112, 112, 3) uint8 crops and their mask. The device programs are
+the same perception step, pose front, limbs and crops+mask embed.
+
 Device work is enqueued on one CUDA stream and never waited on while it
 is enqueued: the host decisions (overflow, face and peak counts) run in
 ``advance_batch`` on tables fetched through pinned memory. Uploads run on
@@ -27,8 +35,7 @@ a second stream, from pinned staging. ``process_stream`` dispatches batch
 *i+1* before batch *i*'s host stages run, as the JAX class does.
 
 Not ported, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``mesh`` (item 10), the 'host' transfer plan and its host
-resize, warp and embed worker (item 9), int8 trunks (item 8), and
+ROADMAP.md item: ``mesh`` (Queue 1 item 6), int8 trunks (item 5), and
 ``limb_backend='matmul'`` (a TPU cost reformulation of the gather form).
 The JAX class's windowed and grouped-slab embed warps, also TPU cost
 reformulations, give the full-frame warp's crops bit for bit; this port
@@ -38,7 +45,10 @@ no effect.
 
 import contextlib
 import functools
+import itertools
 import threading
+import weakref
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -55,23 +65,23 @@ from terran_tpu_torch.ops.pose_decode import (
     NUM_LIMBS, NUM_PARTS, forward_and_find_peaks, limb_scores, pack_peaks,
     unpack_pose_outputs,
 )
-from terran_tpu_torch.ops.resize import resize_bilinear_u8, resized_shape
+from terran_tpu_torch.ops.resize import (
+    resize_bilinear_u8, resize_bilinear_u8_cv2, resize_bilinear_u8_host,
+    resized_shape,
+)
 from terran_tpu_torch.ops.upsample import upsample_bicubic
 from terran_tpu_torch.ops.warp import (
     alignment_matrices, alignment_matrices_torch, warp_affine_frames,
+    warp_affine_u8_batch_cv2, warp_affine_u8_batch_numpy,
 )
 from terran_tpu_torch.pose.assembly import assemble_humans, get_keypoints
 from terran_tpu_torch.runtime import (
-    PARAMS_KEEP_F32, cast_params_for_compute, default_policy, resolve_device,
+    PARAMS_KEEP_F32, cast_params_for_compute, check_precision,
+    default_policy, not_ported, resolve_device,
 )
 from terran_tpu_torch.utils.convert import as_state_dict
 
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to terran_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1 item {item})"
-    )
+CROP_SIDE = 112  # the FaceResNet100 input
 
 
 def _resolve_dispatch(name, mode):
@@ -158,8 +168,32 @@ class PerceptionPipeline:
 
         cfg = get_config()
         if mesh is not None:
-            raise _not_ported("a mesh (multi-card data parallelism)", 10)
+            raise not_ported("a mesh (multi-card data parallelism)", 6)
         self.mesh = None
+        self.embed_precision = check_precision(
+            "embed_precision",
+            cfg.embed_precision if embed_precision is None
+            else embed_precision,
+        )
+        self.pose_precision = check_precision(
+            "pose_precision",
+            cfg.pose_precision if pose_precision is None else pose_precision,
+        )
+        self.with_pose = with_pose
+        self.with_embeddings = with_embeddings
+        self.embed_dispatch = _resolve_dispatch(
+            "embed_dispatch",
+            cfg.embed_dispatch if embed_dispatch is None else embed_dispatch,
+        )
+        self.limb_dispatch = _resolve_dispatch(
+            "limb_dispatch",
+            cfg.limb_dispatch if limb_dispatch is None else limb_dispatch,
+        )
+
+        # Transfer plan: what crosses the host->device link per batch.
+        # 'device': the raw uint8 frames, once. 'host': the detection and
+        # pose resizes, then each face's 112x112 crop, ~4.4x fewer bytes
+        # at 1080p with 8 faces a frame, for host CPU work in exchange.
         self.transfer_plan = (
             cfg.transfer_plan if transfer_plan is None else transfer_plan
         )
@@ -168,10 +202,9 @@ class PerceptionPipeline:
                 f"transfer_plan must be 'device' or 'host', got "
                 f"{self.transfer_plan!r}"
             )
-        if self.transfer_plan == "host":
-            raise _not_ported("transfer_plan='host'", 9)
-        # The host resize serves only the 'host' plan; its setting is
-        # validated as in the JAX class and has no effect here.
+        # Host resize and warp backend: 'auto' takes OpenCV where it
+        # imports (the reference's own host arithmetic, within one count
+        # of the device's), else the 'exact' chain; 'cv2' requires it.
         self.host_resize = (
             cfg.host_resize if host_resize is None else host_resize
         )
@@ -180,21 +213,22 @@ class PerceptionPipeline:
                 f"host_resize must be 'auto', 'exact', or 'cv2', got "
                 f"{self.host_resize!r}"
             )
-        self.embed_precision = (
-            cfg.embed_precision if embed_precision is None
-            else embed_precision
-        )
-        self.pose_precision = (
-            cfg.pose_precision if pose_precision is None else pose_precision
-        )
-        for name, value in (("embed_precision", self.embed_precision),
-                            ("pose_precision", self.pose_precision)):
-            if value not in ("native", "int8"):
+        self._host_cv2 = None
+        if self.host_resize == "cv2" or self.transfer_plan == "host":
+            # A missing OpenCV surfaces here, not in the embed worker.
+            self._uses_cv2()
+        if self.transfer_plan == "host":
+            if with_embeddings and self.embed_dispatch != "adaptive":
                 raise ValueError(
-                    f"{name} must be 'native' or 'int8', got {value!r}"
+                    "transfer_plan='host' requires embed_dispatch="
+                    "'adaptive' (the fused program warps crops from the "
+                    "full frames, which never reach the device)"
                 )
-            if value == "int8":
-                raise _not_ported(f"{name}='int8'", 8)
+            if with_pose and self.limb_dispatch != "adaptive":
+                raise ValueError(
+                    "transfer_plan='host' requires limb_dispatch="
+                    "'adaptive'"
+                )
         # PAF sampler backend: 'auto' is the gather form off the TPU.
         self.limb_backend = cfg.limb_backend
         if self.limb_backend == "auto":
@@ -231,8 +265,6 @@ class PerceptionPipeline:
         self.max_peaks = (
             cfg.max_peaks_per_part if max_peaks is None else max_peaks
         )
-        self.with_pose = with_pose
-        self.with_embeddings = with_embeddings
         # Overflow escalation: saturated batches re-dispatch at doubled
         # capacity. Counters are cumulative over the pipeline's lifetime.
         self.max_escalations = (
@@ -287,16 +319,8 @@ class PerceptionPipeline:
         self.pose_params = (None if self.pose_model is None
                             else self.pose_model.state_dict())
 
-        self.embed_dispatch = _resolve_dispatch(
-            "embed_dispatch",
-            cfg.embed_dispatch if embed_dispatch is None else embed_dispatch,
-        )
         self.embed_buckets = _buckets(cfg.pipeline_embed_buckets)
         self.embed_windows = _buckets(cfg.pipeline_embed_windows)
-        self.limb_dispatch = _resolve_dispatch(
-            "limb_dispatch",
-            cfg.limb_dispatch if limb_dispatch is None else limb_dispatch,
-        )
         self.peak_buckets = _buckets(cfg.pose_peak_buckets)
 
         self._step_fns = {}
@@ -304,6 +328,9 @@ class PerceptionPipeline:
         self._warp_embed_fns = {}
         self._pose_detect_fns = {}
         self._limb_fns = {}
+        # The 'host' plan's embed worker, started at first use.
+        self._embed_pool_obj = None
+        self._embed_pool_finalizer = None
 
         # Optional observability hooks: a StageTimer (aggregate per-stage
         # wall time) and/or a Timeline (per-batch spans with bytes —
@@ -323,12 +350,15 @@ class PerceptionPipeline:
     # Device programs: closures cached per shape and capacity
     # ------------------------------------------------------------------
 
-    def _perception_fn(self, full_h, full_w, top_k=None):
+    def _perception_fn(self, full_h, full_w, top_k=None, pre_resized=False):
         """The perception step for (full_h, full_w) frames at NMS capacity
         ``top_k``: resident uint8 frames -> {'det_packed': (B, K, 17)} and,
-        in fused embed mode, the aligned crops and their slot mask."""
+        in fused embed mode, the aligned crops and their slot mask. With
+        ``pre_resized`` (the 'host' plan) the input is the frames already
+        resized to the detection size; (full_h, full_w) still set the
+        coordinates' scale back."""
         top_k = self.top_k if top_k is None else top_k
-        key = (full_h, full_w, self.embed_dispatch, top_k)
+        key = (full_h, full_w, self.embed_dispatch, top_k, pre_resized)
         if key in self._step_fns:
             return self._step_fns[key]
 
@@ -343,11 +373,12 @@ class PerceptionPipeline:
         inv_scale = 1.0 / det_scale
         with_embeddings = (
             self.with_embeddings and self.rec_model is not None
-            and self.embed_dispatch == "fused"
+            and self.embed_dispatch == "fused" and not pre_resized
         )
 
         def step(frames_full):
-            frames_det = resize_bilinear_u8(frames_full, det_h, det_w)
+            frames_det = (frames_full if pre_resized else
+                          resize_bilinear_u8(frames_full, det_h, det_w))
             packed = detect(frames_det, self.threshold)
             # Boxes and landmarks back to full resolution with the task
             # API's rounding (around().astype(int32)); one packed table
@@ -434,12 +465,15 @@ class PerceptionPipeline:
         self._pose_fns[key] = decode
         return decode
 
-    def _pose_front(self, frames_full, pose_h, pose_w, max_peaks):
+    def _pose_front(self, frames_full, pose_h, pose_w, max_peaks,
+                    pre_resized=False):
         """Resize on the card + CPM forward + fixed-K peak finding (the
         fused upsample + peak-scan kernels on the card). Returns (paf x1
         float32, peaks packed (B, P, K, 5) = y, x, score, valid, part
-        overflow, coords, valid)."""
-        frames_pose = resize_bilinear_u8(frames_full, pose_h, pose_w)
+        overflow, coords, valid). With ``pre_resized`` the input is
+        already at (pose_h, pose_w)."""
+        frames_pose = (frames_full if pre_resized else
+                       resize_bilinear_u8(frames_full, pose_h, pose_w))
         paf, coords, scores, valid, overflow = forward_and_find_peaks(
             self.pose_model, frames_pose, self.keypoint_threshold,
             max_peaks, self.use_fused_peaks,
@@ -447,11 +481,14 @@ class PerceptionPipeline:
         return paf, pack_peaks(coords, scores, valid, overflow), coords, \
             valid
 
-    def _pose_detect_fn(self, full_h, full_w, max_peaks=None):
+    def _pose_detect_fn(self, full_h, full_w, max_peaks=None,
+                        pre_resized=False):
         """First half of the adaptive pose path: frames -> (peaks packed,
-        paf at x1, left on the card for :meth:`_limb_fn`)."""
+        paf at x1, left on the card for :meth:`_limb_fn`). With
+        ``pre_resized`` (the 'host' plan) the input is the frames already
+        resized to the pose size."""
         max_peaks = self.max_peaks if max_peaks is None else max_peaks
-        key = (full_h, full_w, max_peaks)
+        key = (full_h, full_w, max_peaks, pre_resized)
         if key in self._pose_detect_fns:
             return self._pose_detect_fns[key]
         pose_h, pose_w, _ = resized_shape(
@@ -460,7 +497,7 @@ class PerceptionPipeline:
 
         def detect_pose(frames_full):
             paf, peaks, _, _ = self._pose_front(
-                frames_full, pose_h, pose_w, max_peaks
+                frames_full, pose_h, pose_w, max_peaks, pre_resized
             )
             return peaks, paf
 
@@ -503,7 +540,9 @@ class PerceptionPipeline:
         detection, the embed program at every bucket up to ``max_faces``
         (or the fused embed), and the pose programs (every limb bucket up
         to ``max_peaks`` in adaptive mode), so that a stream meets no
-        first-use cost. Returns the number of programs run."""
+        first-use cost. The 'host' plan also runs its two host resizes,
+        and its embed program is the crops+mask embed at every bucket.
+        Returns the number of device programs run."""
         if self.device.type == "cuda":
             from terran_tpu_torch.ops import fused_peaks, nms
             from terran_tpu_torch.utils.cuda_build import load_libraries
@@ -513,6 +552,8 @@ class PerceptionPipeline:
             nms._library()
 
         frames_shape = (batch, height, width, 3)
+        hostprep = self.transfer_plan == "host"
+        with_pose = self.with_pose and self.pose_model is not None
         count = 0
 
         def run(program, *args):
@@ -521,24 +562,48 @@ class PerceptionPipeline:
             count += 1
             return out
 
-        frames = self.put_frames(np.zeros(frames_shape, np.uint8))
-        run(self._perception_fn(height, width), frames)
+        if hostprep:
+            zeros = np.zeros(frames_shape, np.uint8)
+            det_h, det_w, _ = resized_shape(height, width,
+                                            self.det_short_side)
+            self._host_resize(zeros, det_h, det_w)
+            pose_h, pose_w, _ = resized_shape(height, width,
+                                              self.pose_short_side)
+            if with_pose:
+                self._host_resize(zeros, pose_h, pose_w)
+            frames = self.put_frames(np.zeros((batch, det_h, det_w, 3),
+                                              np.uint8))
+            run(self._perception_fn(height, width, pre_resized=True), frames)
+        else:
+            frames = self.put_frames(np.zeros(frames_shape, np.uint8))
+            run(self._perception_fn(height, width), frames)
         embeds = self.with_embeddings and self.rec_model is not None
         if embeds and self.embed_dispatch == "fused":
             run(self._embed_fn(),
-                torch.zeros((batch, self.max_faces, 112, 112, 3),
+                torch.zeros((batch, self.max_faces, CROP_SIDE, CROP_SIDE, 3),
                             device=self.device),
                 torch.zeros((batch, self.max_faces), dtype=torch.bool,
                             device=self.device))
         elif embeds:
             for k in sorted(set(self.embed_buckets) | {self.max_faces}):
-                if k <= self.max_faces:
+                if k > self.max_faces:
+                    continue
+                if hostprep:
+                    run(self._embed_fn(),
+                        self._put_batch(np.zeros(
+                            (batch, k, CROP_SIDE, CROP_SIDE, 3), np.uint8)),
+                        self._put_batch(np.zeros((batch, k), bool)))
+                else:
                     run(self._warp_embed_fn(k, frames_shape), frames,
                         self._put_batch(np.zeros((batch, k, 7),
                                                  np.float32)))
-        if self.with_pose and self.pose_model is not None:
+        if with_pose:
             if self.limb_dispatch == "adaptive":
-                _, paf = run(self._pose_detect_fn(height, width), frames)
+                pose_in = (self.put_frames(np.zeros(
+                    (batch, pose_h, pose_w, 3), np.uint8))
+                    if hostprep else frames)
+                _, paf = run(self._pose_detect_fn(
+                    height, width, pre_resized=hostprep), pose_in)
                 for kb in sorted(set(self.peak_buckets) | {self.max_peaks}):
                     if kb <= self.max_peaks:
                         run(self._limb_fn(kb, paf.shape), paf,
@@ -599,12 +664,79 @@ class PerceptionPipeline:
                 st.enter_context(self.timeline.span(batch, name, nbytes))
             yield
 
-    def _dispatch_perception(self, frames_dev, top_k=None):
+    def _uses_cv2(self):
+        """Whether the host resize and warp run OpenCV: never under
+        'exact', where OpenCV imports under 'auto', always under 'cv2'
+        (``ImportError`` without it). Decided once, by calling the cv2
+        resize on an empty batch."""
+        if self._host_cv2 is None:
+            use = self.host_resize != "exact"
+            if use:
+                try:
+                    resize_bilinear_u8_cv2(np.zeros((0, 1, 1, 3), np.uint8),
+                                           1, 1)
+                except ImportError:
+                    if self.host_resize == "cv2":
+                        raise
+                    use = False
+            self._host_cv2 = use
+        return self._host_cv2
+
+    def _host_resize(self, frames, out_h, out_w):
+        """Resize a uint8 batch on the host ('host' plan) -> uint8 numpy:
+        OpenCV's fixed point (:meth:`_uses_cv2`), else the 'exact' chain,
+        the device plan's own resize run on the CPU."""
+        resize = (resize_bilinear_u8_cv2 if self._uses_cv2()
+                  else resize_bilinear_u8_host)
+        return resize(np.asarray(frames), out_h, out_w)
+
+    def _host_prep_resize(self, frames):
+        """Host half of the 'host' plan's prep for one batch: the
+        detection and pose resizes. No device work: ``process_stream``
+        runs it on its own thread, so batch i+1's resizes overlap batch
+        i's uploads."""
+        if isinstance(frames, torch.Tensor):
+            frames = frames.cpu()
+        frames = np.asarray(frames)
+        full_h, full_w = frames.shape[1:3]
+        det_h, det_w, _ = resized_shape(full_h, full_w, self.det_short_side)
+        det_host = self._host_resize(frames, det_h, det_w)
+        pose_host = None
+        if self.with_pose and self.pose_model is not None:
+            pose_h, pose_w, _ = resized_shape(full_h, full_w,
+                                              self.pose_short_side)
+            pose_host = self._host_resize(frames, pose_h, pose_w)
+        return {"frames": frames, "det_host": det_host,
+                "pose_host": pose_host}
+
+    def _host_prep_upload(self, prep):
+        """Upload half of the 'host' plan's prep: the resized inputs go to
+        the card (pinned, on the upload stream); the full frames stay on
+        the host for the face warps."""
+        pose_host = prep.pop("pose_host")
+        prep["det_dev"] = self.put_frames(prep.pop("det_host"))
+        prep["pose_dev"] = (None if pose_host is None
+                            else self.put_frames(pose_host))
+        return prep
+
+    def _host_prep(self, frames):
+        """The 'host' plan's whole prep (resizes, then uploads) for one
+        batch; ``process_stream`` runs the two halves on two threads."""
+        return self._host_prep_upload(self._host_prep_resize(frames))
+
+    def _dispatch_perception(self, frames_dev, top_k=None, pre_shape=None):
         """Enqueue the perception step (and, in fused embed mode, the
         embed program) on resident frames and start the result copies.
-        Returns the dict of in-flight fetches."""
-        full_h, full_w = frames_dev.shape[1:3]
-        out = dict(self._perception_fn(full_h, full_w, top_k)(frames_dev))
+        Returns the dict of in-flight fetches. ``pre_shape`` = (full_h,
+        full_w) marks ``frames_dev`` as the 'host' plan's upload, already
+        resized to the detection size."""
+        if pre_shape is not None:
+            full_h, full_w = pre_shape
+        else:
+            full_h, full_w = frames_dev.shape[1:3]
+        step = self._perception_fn(full_h, full_w, top_k,
+                                   pre_resized=pre_shape is not None)
+        out = dict(step(frames_dev))
         if "crops" in out:
             out["emb_packed"] = self._embed_fn()(
                 out.pop("crops"), out.pop("emb_mask_dev"))
@@ -625,31 +757,61 @@ class PerceptionPipeline:
 
         Returns (out dict of in-flight fetches, pose tuple or None, n,
         pose_scale).
+
+        Under ``transfer_plan='host'`` the caller's host ``frames`` are
+        read again, by the embed worker thread after this returns, to warp
+        the faces: they must not be overwritten until the batch is
+        collected. ``frames`` may also be the prep dict of
+        :meth:`_host_prep` (``process_stream`` makes it on its threads).
         """
         bid = self._batch_seq
         self._batch_seq += 1
         if stage is None:
             stage = functools.partial(self._stage, batch=bid)
-        if not hasattr(frames, "shape"):
+
+        hostprep = self.transfer_plan == "host"
+        prep = None
+        if isinstance(frames, dict) and "det_dev" in frames:
+            prep = frames
+        elif hostprep:
+            with stage("host_prep"):
+                prep = self._host_prep(frames)
+        if prep is not None:
+            frames = prep["frames"]
+        elif not hasattr(frames, "shape"):
             frames = np.asarray(frames)
         n = frames.shape[0]
         full_h, full_w = frames.shape[1:3]
 
-        with stage("h2d", items=n, nbytes=getattr(frames, "nbytes", 0)):
-            frames_dev = self.put_frames(frames)
-        with stage("perception_step", items=n):
-            out = self._dispatch_perception(frames_dev)
-        if (self.max_escalations > 0
-                or (self.embed_dispatch == "adaptive"
-                    and self.with_embeddings
-                    and self.rec_model is not None)):
-            # The adaptive embed program is dispatched in advance_batch,
-            # once the detections are on the host, and escalation
-            # re-dispatches saturated batches: the frames stay resident.
-            out["_frames_dev"] = frames_dev
+        if hostprep:
+            # The detection-size resize crossed the link instead of the
+            # frames; the frames stay on the host for the face warps.
+            frames_dev = prep["det_dev"]
+            pre_shape = (full_h, full_w)
+            with stage("perception_step", items=n):
+                out = self._dispatch_perception(frames_dev,
+                                                pre_shape=pre_shape)
+            out["_frames_host"] = frames
+            pose_in = prep["pose_dev"]
+        else:
+            pre_shape = None
+            with stage("h2d", items=n, nbytes=getattr(frames, "nbytes", 0)):
+                frames_dev = self.put_frames(frames)
+            with stage("perception_step", items=n):
+                out = self._dispatch_perception(frames_dev)
+            if (self.max_escalations > 0
+                    or (self.embed_dispatch == "adaptive"
+                        and self.with_embeddings
+                        and self.rec_model is not None)):
+                # The adaptive embed program is dispatched in
+                # advance_batch, once the detections are on the host, and
+                # escalation re-dispatches saturated batches: the frames
+                # stay resident.
+                out["_frames_dev"] = frames_dev
+            pose_in = frames_dev
         if self.max_escalations > 0:
             out["_redetect"] = lambda tk: self._dispatch_perception(
-                frames_dev, top_k=tk
+                frames_dev, top_k=tk, pre_shape=pre_shape
             )
 
         pose_out = None
@@ -661,7 +823,8 @@ class PerceptionPipeline:
             if self.limb_dispatch == "adaptive":
                 def repose(max_peaks):
                     peaks, paf = self._pose_detect_fn(
-                        full_h, full_w, max_peaks)(frames_dev)
+                        full_h, full_w, max_peaks, pre_resized=hostprep,
+                    )(pose_in)
                     return _Fetch(peaks), paf
 
                 with stage("pose_dispatch", items=n):
@@ -695,6 +858,7 @@ class PerceptionPipeline:
             stage = functools.partial(self._stage, batch=bid)
 
         frames_dev = out.pop("_frames_dev", None)
+        frames_host = out.pop("_frames_host", None)
         redetect = out.pop("_redetect", None)
 
         det_dev = out.pop("det_packed")
@@ -730,7 +894,17 @@ class PerceptionPipeline:
             and self.rec_model is not None
         )
         emb_plan = None
-        if adaptive_embed and frames_dev is not None:
+        if adaptive_embed and frames_host is not None:
+            # 'host' plan: the embed worker warps the faces on the host and
+            # uploads only the crops, overlapping this thread's pose
+            # fetches and the next batch's prep; collect_batch resolves
+            # the future. The worker reads out's mask and landmarks, set
+            # above; this thread only adds keys from here on.
+            emb_plan = self._embed_pool().submit(
+                self._dispatch_adaptive_embed_host, out, frames_host, n,
+                stage,
+            )
+        elif adaptive_embed and frames_dev is not None:
             # Dispatch the bucketed warp+embed now; it computes while the
             # pose fetch and host assembly run.
             with stage("embed_dispatch", items=n):
@@ -916,10 +1090,43 @@ class PerceptionPipeline:
             frames_dev, self._put_batch(packed))
         return _Fetch(emb)
 
+    @_device_work
+    def _dispatch_adaptive_embed_host(self, out, frames, n, stage):
+        """The 'host' plan's :meth:`_dispatch_adaptive_embed`: the faces
+        are warped on the host (:meth:`_host_warp_fn`) and only the
+        (b, k, 112, 112, 3) uint8 crops and their (b, k) mask cross the
+        link, into the crops+mask embed (:meth:`_embed_fn`). Runs on the
+        embed worker thread, so it makes the compute stream current and
+        enters inference mode itself (both are per thread). Returns the
+        in-flight fetch, or None when no faces were found."""
+        b = frames.shape[0]
+        plan = self._plan_adaptive_embed(out, b)
+        if plan is None:
+            return None
+        packed, k = plan
+        mask = packed[..., 6] > 0.5
+        warp = self._host_warp_fn()
+        with stage("embed_host_warp", items=int(mask.sum())):
+            crops = np.zeros((b, k, CROP_SIDE, CROP_SIDE, frames.shape[3]),
+                             np.uint8)
+            for i in range(b):
+                js = np.flatnonzero(mask[i])
+                if js.size:
+                    crops[i, js] = warp(
+                        frames[i], packed[i, js, :6].reshape(-1, 2, 3))
+        with stage("embed_dispatch", items=n,
+                   nbytes=crops.nbytes + mask.nbytes):
+            emb = self._embed_fn()(self._put_batch(crops),
+                                   self._put_batch(mask))
+            return _Fetch(emb)
+
     def _collect_adaptive_embed(self, plan, n):
         """Fetch the adaptive embed result and place it in the
         (n, >=max_faces, dim) grid the fused path produces (wider than
-        max_faces only when capacity escalation fired for this batch)."""
+        max_faces only when capacity escalation fired for this batch).
+        Under the 'host' plan ``plan`` is the embed worker's future."""
+        if isinstance(plan, Future):
+            plan = plan.result()
         if plan is None:
             return (
                 np.zeros((n, self.max_faces, EMBEDDING_DIM), np.float32),
@@ -935,34 +1142,33 @@ class PerceptionPipeline:
         grid_mask[:, :k] = emb[..., dim] > 0.5
         return grid, grid_mask
 
-    # The 'host' transfer plan's parts (ROADMAP.md, Queue 1 item 9).
-
-    def _host_prep_resize(self, frames):
-        raise _not_ported("transfer_plan='host'", 9)
-
-    def _host_prep_upload(self, prep):
-        raise _not_ported("transfer_plan='host'", 9)
-
-    def _host_prep(self, frames):
-        raise _not_ported("transfer_plan='host'", 9)
-
-    def _host_resize(self, frames, out_h, out_w):
-        raise _not_ported("the host resize", 9)
-
     def _host_warp_fn(self):
-        raise _not_ported("the host face warp", 9)
+        """The 'host' plan's face warp, on the resize's backend: OpenCV's
+        fixed point (within one count), else the numpy twin of the card's
+        warp."""
+        return (warp_affine_u8_batch_cv2 if self._uses_cv2()
+                else warp_affine_u8_batch_numpy)
 
     def _embed_pool(self):
-        raise _not_ported("the host plan's embed worker", 9)
-
-    def _dispatch_adaptive_embed_host(self, out, frames, full_shape, n,
-                                      stage=None):
-        raise _not_ported("transfer_plan='host'", 9)
+        """The 'host' plan's embed worker: one thread, so that its jobs
+        enqueue in batch order. Shut down by :meth:`close`, or when the
+        pipeline is collected."""
+        if self._embed_pool_obj is None:
+            self._embed_pool_obj = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="terran-tpu-torch-embed")
+            self._embed_pool_finalizer = weakref.finalize(
+                self, self._embed_pool_obj.shutdown, wait=False)
+        return self._embed_pool_obj
 
     def close(self):
-        """Release host-side resources. The JAX class frees its 'host'
-        plan's embed worker here; the device plan holds none, so this is a
-        no-op kept for the interface. Idempotent."""
+        """Shut down the 'host' plan's embed worker, after its queued jobs.
+        Idempotent; the pipeline stays usable (a later batch starts a new
+        worker)."""
+        pool = self._embed_pool_obj
+        if pool is not None:
+            self._embed_pool_obj = None
+            self._embed_pool_finalizer.detach()
+            pool.shutdown(wait=True)
 
     def __enter__(self):
         return self
@@ -970,6 +1176,27 @@ class PerceptionPipeline:
     def __exit__(self, *exc):
         self.close()
         return False
+
+    def _worker_stage(self, fn, name):
+        """``fn``, recorded as the stage ``name`` of each batch it takes on
+        a worker thread of :meth:`process_stream`. Every thread takes the
+        batches in order, so the k-th is dispatch id _batch_seq + k as
+        long as this stream is the only dispatcher meanwhile."""
+        ids = itertools.count(self._batch_seq)
+
+        def run(item):
+            if isinstance(item, dict):  # the 'host' plan's prep
+                frames = item["frames"]
+                nbytes = sum(value.nbytes for key, value in item.items()
+                             if key.endswith("_host") and value is not None)
+            else:
+                frames = item
+                nbytes = getattr(item, "nbytes", 0)
+            with self._stage(name, items=len(frames), nbytes=nbytes,
+                             batch=next(ids)):
+                return fn(item)
+
+        return run
 
     def process_stream(self, batches, depth=None, prefetch=True):
         """Software-pipelined batch processing.
@@ -980,7 +1207,10 @@ class PerceptionPipeline:
         is computing and batch *i+2* is crossing the host->device link.
 
         With ``prefetch``, uploads move to a background thread
-        (``io.video.prefetch.threaded_device_put`` with :meth:`put_frames`).
+        (``io.video.prefetch.threaded_device_put`` with :meth:`put_frames`,
+        the ``h2d_thread`` stage). Under the 'host' plan two threads
+        precede the dispatch loop: the host resizes
+        (``host_resize_thread``), then their uploads (``h2d_thread``).
 
         Yields one result dict per input batch, in order.
         """
@@ -997,21 +1227,14 @@ class PerceptionPipeline:
                 threaded_device_put,
             )
 
-            put = self.put_frames
-            if self.timeline is not None:
-                # The k-th batch through the worker is dispatch id
-                # _batch_seq + k, as long as this stream is the only
-                # dispatcher while the timeline is attached.
-                import itertools
-
-                ids = itertools.count(self._batch_seq)
-
-                def put(x, _put=self.put_frames):
-                    with self.timeline.span(next(ids), "h2d_thread",
-                                            getattr(x, "nbytes", 0)):
-                        return _put(x)
-
-            batches = threaded_device_put(batches, depth=depth, put=put)
+            if self.transfer_plan == "host":
+                stages = ((self._host_prep_resize, "host_resize_thread"),
+                          (self._host_prep_upload, "h2d_thread"))
+            else:
+                stages = ((self.put_frames, "h2d_thread"),)
+            for fn, name in stages:
+                batches = threaded_device_put(
+                    batches, depth=depth, put=self._worker_stage(fn, name))
 
         # Two-phase finalization: once a batch leaves the dispatch window,
         # phase A (advance_batch: decision fetches + adaptive dispatches)

@@ -1,11 +1,13 @@
 """Host-side OpenPose greedy limb matching and human assembly.
 
-A copy of ``terran_tpu/pose/assembly.py`` (Python version only): the
-data-dependent tail of the reference decode — greedy bipartite matching per
-limb (openpose/wrapper.py:335-366) and incremental human merging
+A copy of ``terran_tpu/pose/assembly.py``: the data-dependent tail of the
+reference decode — greedy bipartite matching per limb
+(openpose/wrapper.py:335-366) and incremental human merging
 (wrapper.py:368-478) — on the fixed-size masked arrays produced by the
 on-device decode (``terran_tpu_torch.ops.pose_decode``). These stages are
-O(people^2) on a handful of rows, so they run on the host.
+O(people^2) on a handful of rows, so they run on the host: in C++
+(``terran_tpu_torch.native``) where the library builds, else in the
+Python version here, which gives the same humans.
 """
 
 import numpy as np
@@ -42,7 +44,7 @@ def greedy_connections(reg_scores, accept, count_src, count_dst):
 
 
 def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
-                    human_threshold=0.4):
+                    human_threshold=0.4, use_native=None):
     """Build humans from per-limb connections for one image.
 
     Parameters are the per-image device outputs: peak_coords (P, K, 2),
@@ -53,6 +55,9 @@ def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
     (N_humans, 20)) following the reference layout: first 18 entries are
     global peak ids (or -1), then score sum, then keypoint count
     (wrapper.py:368-380).
+
+    Runs the C++ version (``terran_tpu_torch.native``) when it is
+    available; ``use_native=False`` forces this Python version.
     """
     counts = peak_valid.sum(axis=1).astype(int)  # (P,)
     offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
@@ -68,6 +73,16 @@ def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
         np.concatenate(rows, axis=0) if any(len(r) for r in rows)
         else np.zeros((0, 3))
     )
+
+    if use_native is not False:
+        from terran_tpu_torch import native
+
+        if native.native_available():
+            humans = native.assemble_humans_native(
+                peak_scores, counts, offsets, reg_scores, accept, LIMBSEQ,
+                human_threshold=human_threshold,
+            )
+            return peaks_by_id, humans
 
     humans = np.ones((0, 20)) * -1
 

@@ -18,7 +18,8 @@ from terran_tpu_torch.ops.pose_decode import (
 )
 from terran_tpu_torch.pose.assembly import assemble_humans, get_keypoints
 from terran_tpu_torch.runtime import (
-    PARAMS_KEEP_F32, cast_params_for_compute, default_policy, resolve_device,
+    PARAMS_KEEP_F32, cast_params_for_compute, check_precision,
+    default_policy, resolve_device,
 )
 from terran_tpu_torch.utils.batching import resize_factory
 from terran_tpu_torch.utils.profiling import get_logger
@@ -30,11 +31,17 @@ class OpenPoseEstimator:
 
     def __init__(self, params=None, short_side=None, compute_dtype=None,
                  device=None, max_peaks=None, max_escalations=None,
-                 use_fused_peaks=None):
+                 use_fused_peaks=None, pose_precision=None):
         """``params``: a :class:`BodyPoseModel` state dict (default: the
         converted checkpoint store). ``device``: where the model runs,
-        the CUDA card unless the caller names another (``"cpu"``)."""
+        the CUDA card unless the caller names another (``"cpu"``).
+        ``pose_precision``: 'native' (default: config ``pose_precision``);
+        'int8' raises until it is ported."""
         cfg = get_config()
+        self.pose_precision = check_precision(
+            "pose_precision",
+            cfg.pose_precision if pose_precision is None else pose_precision,
+        )
         short_side = cfg.pose_short_side if short_side is None else short_side
         max_peaks = (
             cfg.max_peaks_per_part if max_peaks is None else max_peaks

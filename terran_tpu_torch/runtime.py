@@ -25,6 +25,26 @@ def resolve_device(device=None):
     return default_device() if device is None else torch.device(device)
 
 
+def not_ported(what, item):
+    """The error for a part of ``terran_tpu`` that this package has not
+    ported yet, naming its ROADMAP.md Queue 1 item."""
+    return NotImplementedError(
+        f"{what} is not ported to terran_tpu_torch yet (ROADMAP.md, "
+        f"Queue 1 item {item})"
+    )
+
+
+def check_precision(name, value):
+    """``value`` of an ``embed_precision``/``pose_precision`` setting:
+    'native' passes; 'int8' raises until the int8 trunks are ported; any
+    other value raises ``ValueError``."""
+    if value not in ("native", "int8"):
+        raise ValueError(f"{name} must be 'native' or 'int8', got {value!r}")
+    if value == "int8":
+        raise not_ported(f"{name}='int8'", 5)
+    return value
+
+
 @functools.lru_cache(maxsize=64)
 def device_constant(values, dtype, device):
     """The nested tuple ``values`` as a ``dtype`` tensor on ``device``, made

@@ -7,13 +7,15 @@
   ``timeline`` attribute records into.
 
 ``StageTimer`` and ``Timeline`` are copies of
-``terran_tpu/utils/profiling.py``'s. Both read the host clock: on the
-card a dispatch span is the time to enqueue the work, not the device
-time, as under JAX's asynchronous dispatch.
+``terran_tpu/utils/profiling.py``'s; ``StageTimer`` also takes a lock,
+since the pipeline's worker threads record into it. Both read the host
+clock: on the card a dispatch span is the time to enqueue the work, not
+the device time, as under JAX's asynchronous dispatch.
 """
 
 import contextlib
 import logging
+import threading
 import time
 from collections import defaultdict
 
@@ -37,11 +39,13 @@ class StageTimer:
         self.times = defaultdict(float)
         self.counts = defaultdict(int)
         self.items = defaultdict(int)
+        self._lock = threading.Lock()
 
     def record(self, name, seconds, items=0):
-        self.times[name] += seconds
-        self.counts[name] += 1
-        self.items[name] += items
+        with self._lock:
+            self.times[name] += seconds
+            self.counts[name] += 1
+            self.items[name] += items
 
     @contextlib.contextmanager
     def stage(self, name, items=0):
@@ -52,7 +56,9 @@ class StageTimer:
     def summary(self):
         """Per-stage dict of total seconds, calls, mean latency, items/sec."""
         out = {}
-        for name, total in self.times.items():
+        with self._lock:
+            times = dict(self.times)
+        for name, total in times.items():
             calls = self.counts[name]
             items = self.items[name]
             out[name] = {
@@ -66,9 +72,10 @@ class StageTimer:
         return out
 
     def reset(self):
-        self.times.clear()
-        self.counts.clear()
-        self.items.clear()
+        with self._lock:
+            self.times.clear()
+            self.counts.clear()
+            self.items.clear()
 
 
 class Timeline:

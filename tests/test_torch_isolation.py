@@ -92,6 +92,19 @@ SCRIPT = textwrap.dedent(f"""
     assert result["boxes"].shape == (1, 8, 4), result["boxes"].shape
     assert result["embeddings"].shape == (1, 1, 512)
     assert len(result["poses"]) == 1
+    # The 'host' plan under 'auto' falls through to the exact chain when
+    # cv2 does not import; at the identity resize it is the device plan.
+    with PerceptionPipeline(
+            det_params=pipe.det_params, rec_params=pipe.rec_params,
+            pose_params=pipe.pose_params, device="cpu", det_short_side=48,
+            pose_short_side=48, top_k=8, max_faces=1, max_peaks=4,
+            max_escalations=0, transfer_plan="host",
+            host_resize="auto") as host:
+        assert not host._uses_cv2()
+        result_host = host.process_batch(images)
+    for key in ("boxes", "mask", "embeddings", "embeddings_mask"):
+        assert np.array_equal(result_host[key], result[key]), key
+    print("host plan:", int(result_host["mask"].sum()), "faces")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
@@ -114,20 +127,44 @@ def test_port_runs_without_jax_or_host_libraries():
     assert result.stdout.strip().splitlines()[-1].startswith("ok")
 
 
+# The 'host' plan's OpenCV forms import cv2 when they are called, and
+# nothing else names a blocked module: (path, function) of each.
+LAZY_CV2 = {
+    ("terran_tpu_torch/ops/resize.py", "resize_bilinear_u8_cv2"),
+    ("terran_tpu_torch/ops/warp.py", "warp_affine_u8_batch_cv2"),
+}
+
+
+def imports(node, function=None):
+    """(enclosing function or None, module) of every import under
+    ``node``."""
+    import ast
+
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, ast.Import):
+            for alias in child.names:
+                yield function, alias.name
+        elif isinstance(child, ast.ImportFrom):
+            yield function, child.module or ""
+        inner = (child.name if isinstance(
+            child, (ast.FunctionDef, ast.AsyncFunctionDef)) else function)
+        yield from imports(child, inner)
+
+
 def test_sources_import_nothing_blocked():
     """No module of the package names a blocked module, lazy imports
-    inside functions included."""
+    inside functions included, except the two lazy cv2 imports of
+    LAZY_CV2."""
     import ast
 
     sources = sorted((REPO / "terran_tpu_torch").rglob("*.py"))
     assert sources
+    lazy_cv2 = set()
     for path in sources:
-        for node in ast.walk(ast.parse(path.read_text())):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
+        rel = path.relative_to(REPO).as_posix()
+        for function, name in imports(ast.parse(path.read_text())):
+            if name == "cv2" and (rel, function) in LAZY_CV2:
+                lazy_cv2.add((rel, function))
                 continue
-            for name in names:
-                assert name.split(".")[0] not in BLOCKED, (path, name)
+            assert name.split(".")[0] not in BLOCKED, (rel, function, name)
+    assert lazy_cv2 == LAZY_CV2

@@ -16,3 +16,14 @@ def single_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_torch_thread_module():
+    # For a module whose shared fixtures build pipelines: a worker thread
+    # keeps the torch thread count in force when it first ran an op, so
+    # the count is set before the module-scoped fixtures start any.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
