@@ -8,6 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, exits nonzero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
+   scipy's version (the tracker needs it: an ImportError fails the run)
+   and where ffmpeg is;
 2. build the hand-written kernels with nvcc, one build per source, in
    parallel: terran_tpu_torch/csrc/fused_peaks.cu (the tile scan and the
    plane merge) and terran_tpu_torch/csrc/nms.cu (the IoU bitmask and the
@@ -56,6 +58,14 @@ Phases (any failure raises, exits nonzero and prints no result line):
    it prints frames/s, the ``StageTimer`` summary and the launches per
    batch; then ``max_escalations=2`` on 2 frames must raise every
    escalation counter (detect, pose, embed);
+   this slice's main path, concurrent streams: 4 seeded 1080p
+   ``SyntheticVideo`` noise streams of 16 frames (source batch 4) through
+   ``MultiStreamPerception`` on the warm pipeline, batch 8, tracking on, 2
+   timed sweeps of 8 batches: every (stream, frame) exactly once, both
+   kernels launched on every batch, frames/s beside plain
+   ``process_stream`` over the same multiplexed batches, the host time in
+   ``Sort.update``; the faces, tracks, embeddings and poses equal to
+   ``process_batch`` on those batches plus a fresh ``Sort`` per stream;
    the same pipeline under ``transfer_plan='host'`` (host resizes, host
    face warps, crops uploaded), once with bench.py's ``host_resize``
    ('auto': OpenCV where it imports) and once with the exact chain (the
@@ -66,6 +76,12 @@ Phases (any failure raises, exits nonzero and prints no result line):
    the plan that bench.py's rule would pick;
    host assembly, native against Python, on synthetic decode outputs of a
    batch at K=16 with accepted limbs: times, and the same humans;
+   tiled detection: ``TiledDetector`` (tile 1024, overlap 256) on a
+   seeded 2160x3840 frame, 15 tiles sliced on the card (equal to the
+   host's), the merge's NMS on the card (one call more than the tiles'),
+   each kept face a tile's detection at its origin, timed;
+   recognition without landmarks on 8 crops of assorted sizes: the
+   card's resize + pad against the CPU's, unit (8, 512) embeddings;
 5. float32 with TF32 off: the fused path and the materialised path
    (``fused_peaks='off'``) give equal keypoints, and the card's forward
    agrees with the CPU's on a small input; the same for RetinaFace and
@@ -79,8 +95,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    the kernels' device time at K=16, 32 and 128, and the CUDA kernels of
    one NMS suppression call (2: mask and sweep) with each one's device
    time at K=64, 256 and 1024;
-7. JSON lines describing the pipeline, its host plan and the kernels,
-   then the card's line, then the result line.
+7. JSON lines describing the pipeline, its host plan, the streams, the
+   tiled call, recognition without landmarks and the kernels, then the
+   card's line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -114,6 +131,21 @@ PIPE_CONFIG = {"top_k": 64, "max_faces": 8, "max_peaks": 16,
 PIPE_BATCHES = 8
 PIPE_SWEEPS = 3
 PIPE_DEPTH = 2
+# Concurrent streams (examples/streams.py, BASELINE.md config 5): 4 seeded
+# 1080p noise streams of 16 frames read 4 at a time, through the warm
+# pipeline at batch 8 with tracking, 2 timed sweeps of 8 batches.
+STREAMS = 4
+STREAM_FRAMES = 16
+STREAM_SOURCE_BATCH = 4
+STREAM_SWEEPS = 2
+# Tiled detection: one 2160x3840 frame in 15 tiles of 1024, overlap 256.
+TILED_FRAME = (2160, 3840)
+TILE = 1024
+TILE_OVERLAP = 256
+# Whole-face crops for recognition without landmarks: upscaled and
+# downscaled, odd aspect ratios, a side of one pixel, a square.
+NO_LANDMARK_SHAPES = [(37, 51), (200, 160), (112, 112), (640, 480),
+                      (90, 300), (1, 80), (150, 150), (1080, 1920)]
 # float32 operations of one IoU test in csrc/nms.cu: 2 max, 2 min, 2
 # subtractions, 2 clamps, 1 product, 2 additions/subtractions, 1 division,
 # 1 compare.
@@ -177,32 +209,49 @@ def assert_same(got, expected, label):
                                  f"in {name}")
 
 
-def profile_call(fn, calls):
+def profile_call(fn, calls, counts=None):
     """(CUDA kernels per call, device ms per call, {kernel name: device ms
     per call}) of ``calls`` calls of ``fn`` under torch.profiler; every
-    device activity counts as a kernel."""
+    device activity but the step annotation counts as a kernel. The
+    profiler's schedule runs one warm-up call with the device tracing
+    already on, whose records it drops, so the measured calls start on a
+    running trace. The profiler still loses records now and then (17 of 20
+    calls' two kernels once), so a kernel's ms a call is its mean over the
+    records seen times its launches a call, rounded. ``counts``, a dict,
+    receives the records seen for each kernel name."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        prof.step()
+    # The schedule's "ProfilerStep*" annotation is also a device event.
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")]
     # "(anonymous namespace)::scan_kernel(float const*, ...)" -> scan_kernel
-    by_name = {}
+    device_ms, records = {}, {}
     for e in events:
         name = re.search(r"(\w+)\(", e.key)
         name = name.group(1) if name else e.key
-        by_name[name] = (by_name.get(name, 0.0)
-                         + e.self_device_time_total / 1e3 / calls)
-    return (sum(e.count for e in events) / calls, sum(by_name.values()),
-            by_name)
+        device_ms[name] = (device_ms.get(name, 0.0)
+                           + e.self_device_time_total / 1e3)
+        records[name] = records.get(name, 0) + e.count
+    if counts is not None:
+        counts.update(records)
+    by_name = {name: device_ms[name] / n * max(1, round(n / calls))
+               for name, n in records.items()}
+    return (sum(records.values()) / calls, sum(by_name.values()), by_name)
 
 
 def kernel_bound_ms(m, h, w, k, factor=8):
@@ -655,7 +704,7 @@ def pipeline_phase(params, batches, card, task_ms):
     one batch, then PIPE_SWEEPS timed ``process_stream`` sweeps over
     ``batches``, with both kernels' launches counted over the sweeps; then
     an escalating run that must raise every escalation counter. Returns
-    the pipeline's fields for the result lines."""
+    the pipeline's fields for the result lines, and the warm pipeline."""
     import torch
 
     from terran_tpu_torch.ops import fused_peaks as fp
@@ -735,7 +784,7 @@ def pipeline_phase(params, batches, card, task_ms):
             "warmup_programs": programs, "warmup_s": warm_s,
             "batches": swept, "launches": launches, "stages": summary,
             "task_ms": task_ms, "escalations": esc.escalations,
-            "upload_bytes_per_frame": upload_per_frame}
+            "upload_bytes_per_frame": upload_per_frame}, pipe
 
 
 def check_pipeline_result(out, n, config):
@@ -1127,6 +1176,364 @@ def pipeline_host_float32_phase(params, rng, dev, card):
     return {"embedding_err": err, "crop_values_differing": differing}
 
 
+def environment_phase():
+    """The host libraries the slice's paths need on the card's machine:
+    scipy (the tracker's assignment; an ImportError fails the run) and an
+    ffmpeg binary (the video reader and writer; only recorded, the smoke
+    feeds synthetic streams)."""
+    import shutil
+
+    import scipy
+    from scipy.optimize import linear_sum_assignment  # noqa: F401
+
+    env = {"scipy": scipy.__version__, "ffmpeg": shutil.which("ffmpeg"),
+           "ffprobe": shutil.which("ffprobe")}
+    log(f"environment: scipy {env['scipy']}, ffmpeg {env['ffmpeg']}, "
+        f"ffprobe {env['ffprobe']}")
+    return env
+
+
+def stream_sources():
+    """STREAMS seeded 1080p noise streams of STREAM_FRAMES frames, read
+    STREAM_SOURCE_BATCH frames at a time (examples/streams.py's source
+    batch)."""
+    from terran_tpu_torch.io.video import SyntheticVideo
+
+    return [SyntheticVideo(width=FRAME[1], height=FRAME[0],
+                           num_frames=STREAM_FRAMES,
+                           batch_size=STREAM_SOURCE_BATCH, seed=i,
+                           pattern="noise")
+            for i in range(STREAMS)]
+
+
+def tracked(faces, base):
+    """(relative track id, bbox, landmarks, score) of tracked faces."""
+    return [(face["track"] - base, face["bbox"].tolist(),
+             face["landmarks"].tolist(), float(face["score"]))
+            for face in faces]
+
+
+def streams_phase(pipe, card):
+    """The slice's main path: STREAMS concurrent 1080p streams through
+    ``MultiStreamPerception`` on the warm pipeline, batch BATCH, with
+    per-stream SORT tracking, STREAM_SWEEPS timed sweeps. Every (stream,
+    frame) once, frame indices contiguous from 0, both kernels launched
+    on every batch (counted at each yield), the host time in
+    ``Sort.update``; plain ``process_stream`` over the same multiplexed
+    batches timed beside it. Then the faces, embeddings, poses and tracks
+    against ``process_batch`` on those batches and a fresh ``Sort`` per
+    stream (ids relative to the tracker counter at the start). Returns
+    the fields of the ``streams`` line."""
+    import numpy as np
+
+    from terran_tpu_torch.io.streams import (
+        MultiStreamPerception, StreamMultiplexer,
+    )
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
+    from terran_tpu_torch.tracking.face import KalmanTracker
+
+    frames_total = STREAMS * STREAM_FRAMES
+    batches = frames_total // BATCH
+    sweeps = []
+    for _ in range(STREAM_SWEEPS):
+        msp = MultiStreamPerception(pipe, stream_sources(), batch_size=BATCH,
+                                    track=True)
+        track_s = []
+        for tracker in msp.trackers:
+            def update(faces, _update=tracker.update):
+                start = time.perf_counter()
+                out = _update(faces)
+                track_s.append(time.perf_counter() - start)
+                return out
+            tracker.update = update
+        base = KalmanTracker.count
+        fp.find_peaks_fused.launches = 0
+        nms.suppress.launches = 0
+        results = []
+        start = time.perf_counter()
+        for i, batch in enumerate(msp):
+            # Batch i was dispatched before it is yielded.
+            if (fp.find_peaks_fused.launches < 2 * (i + 1)
+                    or nms.suppress.launches < i + 1):
+                raise AssertionError(
+                    f"streams batch {i}: kernels not launched (fused_peaks "
+                    f"{fp.find_peaks_fused.launches}, nms suppress calls "
+                    f"{nms.suppress.launches})")
+            results.extend(batch)
+        elapsed = time.perf_counter() - start
+        launches = {"fused_peaks": fp.find_peaks_fused.launches,
+                    "nms": 2 * nms.suppress.launches}
+        if launches != {"fused_peaks": 2 * batches, "nms": 2 * batches}:
+            raise AssertionError(f"streams: launches {launches} over "
+                                 f"{batches} batches, expected 2 each a batch")
+        if len(track_s) != frames_total:
+            raise AssertionError(f"{len(track_s)} Sort.update calls for "
+                                 f"{frames_total} frames")
+        sweeps.append({"fps": frames_total / elapsed, "results": results,
+                       "base": base, "launches": launches,
+                       "track_ms_per_batch": 1e3 * sum(track_s) / batches})
+
+    seen = [(r["stream"], r["frame"]) for r in sweeps[-1]["results"]]
+    if len(seen) != len(set(seen)) or len(seen) != frames_total:
+        raise AssertionError(f"streams: {len(seen)} results, "
+                             f"{len(set(seen))} distinct (stream, frame)")
+    for stream in range(STREAMS):
+        if sorted(f for s, f in seen if s == stream) != list(
+                range(STREAM_FRAMES)):
+            raise AssertionError(f"stream {stream}: frame indices are not "
+                                 "contiguous from 0")
+
+    # Plain process_stream over the same multiplexed batches (no tracking,
+    # no synthetic decode or stacking on the upload thread).
+    muxed = list(StreamMultiplexer(stream_sources(), batch_size=BATCH))
+    if [len(meta) for _, meta in muxed] != [BATCH] * batches:
+        raise AssertionError("the multiplexer did not fill every batch")
+    plain_fps = []
+    for _ in range(STREAM_SWEEPS):
+        start = time.perf_counter()
+        outs = list(pipe.process_stream([f for f, _ in muxed],
+                                        depth=PIPE_DEPTH))
+        plain_fps.append(frames_total / (time.perf_counter() - start))
+    del outs
+
+    # The same frames through process_batch and a fresh Sort per stream,
+    # built as MultiStreamPerception builds them.
+    trackers = MultiStreamPerception(pipe, stream_sources(),
+                                     batch_size=BATCH).trackers
+    base = KalmanTracker.count
+    expected = []
+    detections = 0
+    for frames, meta in muxed:
+        out = pipe.process_batch(frames)
+        faces_per_frame = pipe.faces_from(out)
+        detections += sum(map(len, faces_per_frame))
+        for slot, (stream, frame) in enumerate(meta):
+            faces = trackers[stream].update(faces_per_frame[slot])
+            expected.append({
+                "stream": stream, "frame": frame, "faces": faces,
+                "embeddings": out["embeddings"][slot][
+                    out["embeddings_mask"][slot]],
+                "pose": out["poses"][slot]})
+    got = sweeps[-1]["results"]
+    emb_err = 0.0
+    for g, e in zip(got, expected):
+        if (g["stream"], g["frame"]) != (e["stream"], e["frame"]):
+            raise AssertionError("streams: results out of order")
+        if tracked(g["faces"], sweeps[-1]["base"]) != tracked(e["faces"],
+                                                              base):
+            raise AssertionError(f"streams: faces or tracks of stream "
+                                 f"{g['stream']} frame {g['frame']} differ "
+                                 "from process_batch + a fresh Sort")
+        if g["embeddings"].shape != e["embeddings"].shape:
+            raise AssertionError("streams: embeddings differ in shape")
+        if g["embeddings"].size:
+            emb_err = max(emb_err, float(np.abs(g["embeddings"]
+                                                - e["embeddings"]).max()))
+        if ([p["keypoints"].tolist() for p in g["pose"]]
+                != [p["keypoints"].tolist() for p in e["pose"]]):
+            raise AssertionError("streams: poses differ from process_batch")
+    if emb_err > 1e-6:
+        raise AssertionError(f"streams: embeddings differ from process_batch "
+                             f"by {emb_err}")
+
+    confirmed = {stream: len({f["track"] for r in got if r["stream"] == stream
+                              for f in r["faces"]})
+                 for stream in range(STREAMS)}
+    faces_per_frame = sum(len(r["faces"]) for r in got) / frames_total
+    detected = detections / frames_total
+    fps = [s["fps"] for s in sweeps]
+    fps_median = sorted(fps)[len(fps) // 2]
+    plain_median = sorted(plain_fps)[len(plain_fps) // 2]
+    track_ms = [s["track_ms_per_batch"] for s in sweeps]
+    log(f"streams ({card}): {STREAMS} x {STREAM_FRAMES} {FRAME[0]}x{FRAME[1]} "
+        f"noise streams (source batch {STREAM_SOURCE_BATCH}) through "
+        f"MultiStreamPerception, batch {BATCH}, track=True, {batches} "
+        f"batches a sweep: frames/s per sweep "
+        + ", ".join(f"{f:.2f}" for f in fps)
+        + f", median {fps_median:.2f}; plain process_stream over the same "
+        f"batches " + ", ".join(f"{f:.2f}" for f in plain_fps)
+        + f", median {plain_median:.2f} ({fps_median / plain_median:.3f}x); "
+        f"Sort.update host ms a batch ({BATCH} calls over {STREAMS} trackers) "
+        + ", ".join(f"{t:.3f}" for t in track_ms)
+        + f"; every (stream, frame) once; kernel launches per batch: "
+        f"fused_peaks {sweeps[-1]['launches']['fused_peaks'] / batches:g}, "
+        f"nms {sweeps[-1]['launches']['nms'] / batches:g}; confirmed tracks "
+        f"per stream {confirmed}; tracked faces a frame {faces_per_frame:.2f} "
+        f"of {detected:.2f} detected; faces, tracks and "
+        f"poses equal to process_batch + a fresh Sort, embeddings within "
+        f"{emb_err:.2e}")
+    return {"fps": fps, "fps_median": fps_median, "plain_fps": plain_fps,
+            "plain_fps_median": plain_median,
+            "ratio": fps_median / plain_median,
+            "track_ms_per_batch": track_ms, "batches": batches,
+            "launches": sweeps[-1]["launches"], "confirmed_tracks": confirmed,
+            "tracked_faces_per_frame": faces_per_frame,
+            "detected_faces_per_frame": detected,
+            "embedding_err_vs_batch": emb_err}
+
+
+def tiled_phase(rf_params, dev, card):
+    """``TiledDetector`` (RetinaFace, bf16, tile 1024, overlap 256) on one
+    seeded 2160x3840 frame, 15 tiles: the card's tile slicing equal to
+    the host's bit for bit; each call's NMS calls equal to the tile
+    detect's (one per escalation step) plus one for the merge, whose
+    inputs are CUDA tensors; no peak-scan launch (no pose on this path);
+    every kept face a tile's detection moved by that tile's origin, with
+    its centre inside the frame; median of TIMED_CALLS host-clock calls
+    after one warm call. Returns the fields of the ``tiled`` line."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.face.detection import RetinaFaceDetector
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms, tiling
+
+    detector = RetinaFaceDetector(params=rf_params)
+    if detector.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the tiled path must run bf16")
+    tiled = tiling.TiledDetector(detector, tile=TILE, overlap=TILE_OVERLAP)
+    frame = np.random.default_rng(SEED + 5).integers(
+        0, 255, TILED_FRAME + (3,), dtype=np.uint8)
+    origins = tiling.tile_layout(*TILED_FRAME, TILE, TILE_OVERLAP)
+    if len(origins) != 15:
+        raise AssertionError(f"{len(origins)} tiles, expected 15")
+    on_card = tiling.extract_tiles_device(torch.from_numpy(frame).to(dev),
+                                          origins, TILE)
+    if not torch.equal(on_card.cpu(), torch.from_numpy(
+            tiling.extract_tiles(frame, origins, TILE))):
+        raise AssertionError("extract_tiles_device differs from "
+                             "extract_tiles")
+
+    merges = []
+    merge = tiling.nms_fixed
+
+    def spy(boxes, scores, *args, **kwargs):
+        merges.append((boxes, scores))
+        return merge(boxes, scores, *args, **kwargs)
+
+    tiling.nms_fixed = spy
+    calls, peak_launches, times = [], [], []
+    try:
+        for attempt in range(1 + TIMED_CALLS):
+            escalations = detector.escalation_count
+            nms.suppress.launches = 0
+            fp.find_peaks_fused.launches = 0
+            start = time.perf_counter()
+            faces = tiled(frame)
+            torch.cuda.synchronize()
+            if attempt:
+                times.append(time.perf_counter() - start)
+            tile_calls = 1 + detector.escalation_count - escalations
+            calls.append(nms.suppress.launches)
+            peak_launches.append(fp.find_peaks_fused.launches)
+            if nms.suppress.launches != tile_calls + 1:
+                raise AssertionError(
+                    f"tiled call: {nms.suppress.launches} NMS calls, "
+                    f"expected {tile_calls} for the tiles + 1 for the merge")
+            if fp.find_peaks_fused.launches != 0:
+                raise AssertionError(
+                    f"tiled call: {fp.find_peaks_fused.launches} peak-scan "
+                    f"launches on a path without pose")
+    finally:
+        tiling.nms_fixed = merge
+    boxes, scores = merges[-1]
+    if not (boxes.is_cuda and scores.is_cuda):
+        raise AssertionError(f"the merge ran on {boxes.device}, "
+                             f"{scores.device}")
+    bucket = boxes.shape[0]
+    candidates = int((scores >= 0).sum())
+
+    # Each kept face is one of its tile's detections moved by the origin.
+    per_tile = detector.call(on_card)
+    shifted = np.concatenate([
+        np.concatenate([np.asarray(f["bbox"], np.float32) + (x, y, x, y),
+                        (np.asarray(f["landmarks"], np.float32)
+                         + (x, y)).ravel()])[None]
+        for (y, x), tile_faces in zip(origins, per_tile) for f in tile_faces])
+    for face in faces:
+        row = np.concatenate([face["bbox"], face["landmarks"].ravel()])
+        if not (np.abs(shifted - row).max(axis=1) <= 1e-3).any():
+            raise AssertionError("a kept face is no tile's detection moved "
+                                 "by its origin")
+    kept = np.stack([face["bbox"] for face in faces])
+    h, w = TILED_FRAME
+    inside = int(((kept[:, 0] >= 0) & (kept[:, 1] >= 0) & (kept[:, 2] <= w)
+                  & (kept[:, 3] <= h)).sum())
+    centres = int((((kept[:, 0] + kept[:, 2]) / 2 >= 0)
+                   & ((kept[:, 0] + kept[:, 2]) / 2 <= w)
+                   & ((kept[:, 1] + kept[:, 3]) / 2 >= 0)
+                   & ((kept[:, 1] + kept[:, 3]) / 2 <= h)).sum())
+    if centres != len(faces):
+        raise AssertionError(f"{len(faces) - centres} kept boxes have their "
+                             f"centre outside the frame")
+    ms = 1e3 * sorted(times)[len(times) // 2]
+    log(f"tiled detection ({card}): {TILED_FRAME[0]}x{TILED_FRAME[1]}, tile "
+        f"{TILE}, overlap {TILE_OVERLAP}, {len(origins)} tiles, bf16: "
+        f"{ms:.2f} ms a call (median of {TIMED_CALLS}, host clock); "
+        f"extract_tiles_device == extract_tiles; NMS calls a call {calls} "
+        f"(the tile detect's escalation steps + 1 merge on {boxes.device}); "
+        f"merge: {candidates} candidates in a bucket of {bucket}, top_k "
+        f"{tiled.top_k}, {len(faces)} kept, each a tile's detection at its "
+        f"origin; {inside} kept boxes lie inside the frame, {centres} "
+        f"centres (random weights give boxes "
+        f"{float(np.median(kept[:, 2] - kept[:, 0])):.1f} px wide and "
+        f"{float(np.median(kept[:, 3] - kept[:, 1])):.1f} px tall, median)")
+    return {"ms": ms, "tiles": len(origins), "nms_calls": calls,
+            "peak_launches": peak_launches, "candidates": candidates, "bucket": bucket, "kept": len(faces),
+            "inside_frame": inside, "centres_inside_frame": centres,
+            "escalations": detector.escalation_count}
+
+
+def recognition_no_landmarks_phase(arc_params, dev, card):
+    """``Recognition`` on NO_LANDMARK_SHAPES seeded whole-face crops with
+    no landmarks, bf16: the card's resize + pad within one count of the
+    same function on the CPU (values differing counted), embeddings
+    finite, unit and (8, 512). Returns its fields."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.face import Recognition
+    from terran_tpu_torch.face.recognition import (
+        preprocess_face_no_landmarks,
+    )
+
+    rng = np.random.default_rng(SEED + 6)
+    crops = [rng.integers(0, 256, shape + (3,), dtype=np.uint8)
+             for shape in NO_LANDMARK_SHAPES]
+    worst = differing = 0
+    for crop in crops:
+        on_card = preprocess_face_no_landmarks(
+            torch.from_numpy(crop).to(dev))
+        if not on_card.is_cuda:
+            raise AssertionError("the no-landmarks resize left the card")
+        diff = (on_card.cpu().int()
+                - preprocess_face_no_landmarks(crop).int()).abs()
+        worst = max(worst, int(diff.max()))
+        differing += int((diff > 0).sum())
+    if worst > 1:
+        raise AssertionError(f"no-landmarks crops: card vs CPU {worst} "
+                             "counts apart")
+    recognition = Recognition(params=arc_params)
+    if recognition.model.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the recognition path must run bf16")
+    feats, warm_s, ms = timed_calls(lambda: recognition(crops))
+    if feats.shape != (len(crops), 512) or feats.dtype != np.float32:
+        raise AssertionError(f"no-landmarks embeddings {feats.shape} "
+                             f"{feats.dtype}")
+    norms = np.linalg.norm(feats, axis=1)
+    if not (np.isfinite(feats).all() and np.allclose(norms, 1.0,
+                                                     rtol=1e-5)):
+        raise AssertionError(f"no-landmarks embeddings not unit: {norms}")
+    log(f"recognition without landmarks ({card}): {len(crops)} crops "
+        f"{NO_LANDMARK_SHAPES}, bf16: {ms:.2f} ms a call (median of "
+        f"{TIMED_CALLS}, warm call {warm_s:.3f} s); card vs CPU resize + "
+        f"pad: {differing} values differ, by at most {worst}; embeddings "
+        f"{feats.shape}, finite, unit")
+    return {"ms": ms, "crops": len(crops), "values_differing": differing,
+            "max_count_diff": worst}
+
+
 def main():
     import torch
 
@@ -1158,6 +1565,7 @@ def main():
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    env = environment_phase()
 
     # 2. Build, one nvcc per source, all started together.
     start = time.perf_counter()
@@ -1346,8 +1754,12 @@ def main():
     # pose over batches, both kernels on every batch.
     pipe_params = (rf_params, arc_params, state_dict)
     batches = pipeline_batches()
-    pipe = pipeline_phase(pipe_params, batches, card, {
+    pipe, warm_pipe = pipeline_phase(pipe_params, batches, card, {
         "pose": batch_ms, "detection": det_ms, "recognition": rec_ms})
+    # This slice's main path: concurrent streams with tracking through
+    # the warm pipeline.
+    streams = streams_phase(warm_pipe, card)
+    del warm_pipe
     # The same path under the 'host' transfer plan as bench.py runs it,
     # and with the exact chain (the numpy warp) whatever is installed;
     # then host assembly.
@@ -1356,6 +1768,8 @@ def main():
                                      host_resize="exact")
     del batches
     assembly = assembly_phase(card)
+    tiled = tiled_phase(rf_params, dev, card)
+    no_landmarks = recognition_no_landmarks_phase(arc_params, dev, card)
 
     # 5. float32, TF32 off: fused vs materialised, card vs CPU.
     torch.backends.cudnn.allow_tf32 = False
@@ -1429,17 +1843,28 @@ def main():
     for k in (PIPE_CONFIG["top_k"], 256, 1024):
         top = nms.nms_fixed(*model_boxes, 0.4, score_threshold=0.5, top_k=k)
         valid = torch.isfinite(top[1])
-        nms_kernels, total, names = profile_call(
-            lambda: nms.suppress(top[0], valid, 0.4), 20)
+        records, calls = {}, 20
+        _, total, names = profile_call(
+            lambda: nms.suppress(top[0], valid, 0.4), calls, records)
+        # Kernels a call, counted by name: each kernel's records over the
+        # calls, rounded, so that a record the profiler loses (it once
+        # reported 39 of 40) is logged and does not change the count.
+        nms_kernels = sum(round(n / calls) for n in records.values())
+        lost = 2 * calls - sum(records.values())
         log(f"CUDA kernels in one NMS suppress call at N=8, K={k}: "
-            f"{nms_kernels:g}; device time {total:.4f} ms a call ("
+            f"{nms_kernels:g} ({records} records over {calls} calls, "
+            f"{lost} lost by the profiler); device time {total:.4f} ms a "
+            "call ("
             + ", ".join(f"{name} {t:.4f} ms"
                         for name, t in sorted(names.items()))
             + f") ({card})")
-        if nms_kernels != 2 or set(names) != {"mask_kernel", "sweep_kernel"}:
+        if (nms_kernels != 2
+                or set(records) != {"mask_kernel", "sweep_kernel"}
+                or any(round(n / calls) != 1 for n in records.values())):
             raise AssertionError(f"{nms_kernels} CUDA kernels in one "
-                                 f"suppress call ({sorted(names)}), expected "
-                                 "mask_kernel and sweep_kernel")
+                                 f"suppress call ({records} records over "
+                                 f"{calls} calls), expected mask_kernel and "
+                                 "sweep_kernel once each")
         nms_kernel_ms[k] = dict(names, total=total)
 
     # 7. Results.
@@ -1475,6 +1900,25 @@ def main():
         "limb_scores": sampled,
         "card": card,
     }}))
+    log(json.dumps({"streams": {
+        "frames_per_s": streams["fps_median"],
+        "frames_per_s_sweeps": streams["fps"],
+        "plain_process_stream_frames_per_s": streams["plain_fps_median"],
+        "plain_process_stream_frames_per_s_sweeps": streams["plain_fps"],
+        "ratio_to_plain": streams["ratio"],
+        "tracking_host_ms_per_batch": streams["track_ms_per_batch"],
+        "launches_per_batch": {name: count / streams["batches"] for
+                               name, count in streams["launches"].items()},
+        "confirmed_tracks_per_stream": streams["confirmed_tracks"],
+        "tracked_faces_per_frame": streams["tracked_faces_per_frame"],
+        "detected_faces_per_frame": streams["detected_faces_per_frame"],
+        "embedding_err_vs_process_batch": streams["embedding_err_vs_batch"],
+        "environment": env,
+        "card": card,
+    }}))
+    log(json.dumps({"tiled": dict(tiled, card=card)}))
+    log(json.dumps({"recognition_no_landmarks": dict(no_landmarks,
+                                                     card=card)}))
     log(json.dumps({"kernels": [{
         "name": "fused_peaks",
         "route": "cuda",
@@ -1503,6 +1947,10 @@ def main():
         "pipeline_host_launches": pipe_host["launches"]["fused_peaks"],
         "pipeline_host_launches_per_batch":
             pipe_host["launches"]["fused_peaks"] / pipe_host["batches"],
+        "streams_launches": streams["launches"]["fused_peaks"],
+        "streams_launches_per_batch":
+            streams["launches"]["fused_peaks"] / streams["batches"],
+        "tiled_launches_per_call": tiled["peak_launches"][-1],
         "library_ms": None,
         "card": card,
     }, {
@@ -1545,6 +1993,10 @@ def main():
         "pipeline_host_launches": pipe_host["launches"]["nms"],
         "pipeline_host_launches_per_batch":
             pipe_host["launches"]["nms"] / pipe_host["batches"],
+        "streams_launches": streams["launches"]["nms"],
+        "streams_launches_per_batch":
+            streams["launches"]["nms"] / streams["batches"],
+        "tiled_launches_per_call": 2 * tiled["nms_calls"][-1],
         "library_ms": None,
         "card": card,
     }]}))

@@ -2,10 +2,12 @@
 
 The same public names as ``terran_tpu`` for the parts ported so far
 (``face_detection``, ``Detection``, ``extract_features``, ``Recognition``,
-``pose_estimation``, ``Estimation``, ``Keypoint``, ``default_device``),
-running on an NVIDIA card by default. Imports are lazy (PEP 562), so
-``import terran_tpu_torch`` touches neither the checkpoint store nor the
-card.
+``pose_estimation``, ``Estimation``, ``Keypoint``, ``default_device``,
+``open_video``, ``write_video``, ``face_tracking``), running on an NVIDIA
+card by default; image loading and drawing (``open_image``,
+``resolve_images``, ``display_image``, ``vis_faces``, ``vis_poses``) are
+not ported yet. Imports are lazy (PEP 562), so ``import
+terran_tpu_torch`` touches neither the checkpoint store nor the card.
 """
 
 __version__ = "0.1.0"
@@ -19,6 +21,9 @@ _LAZY = {
     "pose_estimation": ("terran_tpu_torch.pose", "pose_estimation"),
     "Estimation": ("terran_tpu_torch.pose", "Estimation"),
     "Keypoint": ("terran_tpu_torch.pose", "Keypoint"),
+    "open_video": ("terran_tpu_torch.io", "open_video"),
+    "write_video": ("terran_tpu_torch.io", "write_video"),
+    "face_tracking": ("terran_tpu_torch.tracking", "face_tracking"),
 }
 
 __all__ = list(_LAZY)

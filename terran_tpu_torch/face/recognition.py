@@ -4,7 +4,9 @@ The port of ``terran_tpu/face/recognition.py`` (reference:
 face/recognition/__init__.py and arcface/wrapper.py:102-184): each image's
 faces are aligned by a host-side 5-point Umeyama solve and a bilinear warp
 on the device, embedded by FaceResNet100 and L2-normalised there; empty
-face lists give (0, 512) arrays. The JAX package pads face counts to
+face lists give (0, 512) arrays. Without landmarks each whole image is
+resized to fit the crop and centred (:func:`preprocess_face_no_landmarks`,
+PIL's resize computed on the device). The JAX package pads face counts to
 powers of two for its compile cache; PyTorch has none to serve, so this
 port runs each image's faces as they come.
 """
@@ -26,6 +28,98 @@ from terran_tpu_torch.runtime import (
 )
 
 TASK_NAME = "face-recognition"
+
+# PIL's 8-bit resampling arithmetic (libImaging/Resample.c): coefficients
+# in fixed point with PRECISION_BITS fractional bits, sums started at
+# half a unit, results shifted down and clipped to 0..255.
+_PRECISION_BITS = 32 - 8 - 2
+_BICUBIC_A = -0.5
+_BICUBIC_SUPPORT = 2.0
+
+
+def _bicubic(x):
+    """PIL's bicubic filter (a = -0.5) at ``x``, in its operation order."""
+    x = abs(x)
+    if x < 1.0:
+        return ((_BICUBIC_A + 2.0) * x - (_BICUBIC_A + 3.0)) * x * x + 1
+    if x < 2.0:
+        return (((x - 5) * x + 8) * x - 4) * _BICUBIC_A
+    return 0.0
+
+
+def pil_bicubic_weights(in_size, out_size):
+    """(out_size, in_size) float64 matrix of the integer fixed-point
+    coefficients PIL's BICUBIC resize of one axis uses, antialiased when it
+    shrinks: the filter is stretched by the scale and each output's taps
+    are normalised to sum to 1 before they are rounded to fixed point
+    (``precompute_coeffs`` and ``normalize_coeffs_8bpc``, computed in the
+    same double operations, so the integers are PIL's)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = _BICUBIC_SUPPORT * filterscale
+    ss = 1.0 / filterscale
+    unit = float(1 << _PRECISION_BITS)
+    weights = np.zeros((out_size, in_size))
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        taps = [_bicubic((x - center + 0.5) * ss) for x in range(xmin, xmax)]
+        total = 0.0
+        for w in taps:
+            total += w
+        for x, w in zip(range(xmin, xmax), taps):
+            if total != 0.0:
+                w /= total
+            weights[xx, x] = int(w * unit - 0.5 if w < 0 else w * unit + 0.5)
+    return weights
+
+
+def _resample(values, weights, dim):
+    """One PIL resampling pass of integer ``values`` (float64) along
+    ``dim``: the fixed-point sums, shifted and clipped to uint8 counts.
+    Every product and partial sum is an integer below 2**53, so float64
+    computes them exactly on any device."""
+    out = torch.tensordot(values, weights, dims=([dim], [1])).movedim(-1, dim)
+    out = out + float(1 << (_PRECISION_BITS - 1))
+    return torch.clamp(torch.floor(out / float(1 << _PRECISION_BITS)),
+                       0.0, 255.0)
+
+
+def resize_pil_bicubic(image, width, height):
+    """``PIL.Image.fromarray(image).resize((width, height))`` on an (H, W,
+    C) uint8 tensor, on its device: BICUBIC, two passes, horizontal first,
+    each rounded and clipped to uint8 as PIL's are. Returns a uint8
+    tensor."""
+    if width <= 0 or height <= 0:
+        raise ValueError("height and width must be > 0")
+    h, w = image.shape[:2]
+    values = image.to(torch.float64)
+    for dim, size, out_size in ((1, w, width), (0, h, height)):
+        weights = torch.from_numpy(pil_bicubic_weights(size, out_size))
+        values = _resample(values, weights.to(image.device), dim)
+    return values.to(torch.uint8)
+
+
+def preprocess_face_no_landmarks(image, image_side=112):
+    """Resize-to-side + centre pad fallback when no landmarks are available
+    (reference wrapper.py:75-99): the longer side scaled to ``image_side``
+    with PIL's default resize, centred on zeros. ``image``: an (H, W, 3)
+    uint8 array or tensor; returns an (image_side, image_side, 3) uint8
+    tensor on the tensor's device (the CPU for an array)."""
+    if not isinstance(image, torch.Tensor):
+        image = torch.from_numpy(np.ascontiguousarray(image))
+    h, w = image.shape[:2]
+    scale = image_side / max(w, h)
+    new_w, new_h = int(w * scale), int(h * scale)
+    face = resize_pil_bicubic(image, new_w, new_h)
+
+    x_min = int((image_side - new_w) / 2)
+    y_min = int((image_side - new_h) / 2)
+    out = torch.zeros((image_side, image_side, image.shape[2]),
+                      dtype=torch.uint8, device=image.device)
+    out[y_min: y_min + new_h, x_min: x_min + new_w] = face
+    return out
 
 
 class ArcFaceRecognizer:
@@ -76,12 +170,17 @@ class ArcFaceRecognizer:
             np.asarray(face["landmarks"], dtype=np.float32) for face in faces
         ]))
 
+    def _on_device(self, image):
+        """An (H, W, 3) array or tensor as a tensor on the model's
+        device."""
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.ascontiguousarray(image))
+        return image.to(self.device)
+
     def _warp(self, image, mats):
         """Aligned crops of one image, rounded as the reference's PIL warp
         rounds to uint8 (wrapper.py:63-71), on the device."""
-        if not isinstance(image, torch.Tensor):
-            image = torch.from_numpy(np.ascontiguousarray(image))
-        crops = warp_affine_batch(image.to(self.device), mats,
+        crops = warp_affine_batch(self._on_device(image), mats,
                                   out_h=self.image_side,
                                   out_w=self.image_side)
         return torch.round(crops)
@@ -95,15 +194,21 @@ class ArcFaceRecognizer:
 
     def call(self, images, faces_per_image=None):
         """Per image, the (K, 512) float32 normalised embeddings of its
-        faces (wrapper.py:109-184)."""
+        faces (wrapper.py:109-184). Without ``faces_per_image``, each whole
+        image is one face: one (N, 512) array for the N images."""
         if faces_per_image is None:
-            # The reference resizes and pads each whole image with PIL
-            # (wrapper.py:75-99, 149-157); PIL is not on the card's
-            # machine, and a port of its resize is queued in ROADMAP.md.
-            raise NotImplementedError(
-                "recognition without landmarks needs PIL's resize, which "
-                "this package has not ported yet (ROADMAP.md, Queue 1)"
-            )
+            # Resize+pad each whole image on the device and embed the
+            # batch (reference wrapper.py:149-157 packs them as one
+            # pseudo-image).
+            if not len(images):
+                return []  # the JAX package's result for no images
+            with torch.inference_mode():
+                crops = torch.stack([
+                    preprocess_face_no_landmarks(
+                        self._on_device(image), self.image_side)
+                    for image in images
+                ]).to(torch.float32)
+            return self._embed(crops)
         per_image_feats = []
         for image, faces in zip(images, faces_per_image):
             if not faces:

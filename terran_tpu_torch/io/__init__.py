@@ -1,8 +1,10 @@
-"""Video and image I/O. Ported so far: the device feeding of
-``terran_tpu/io/video/prefetch.py`` (``device_prefetch``,
-``threaded_device_put``, ``fixed_shape_batches``); the readers, writers
-and image loading wait in ROADMAP.md, Queue 1 item 11."""
+"""Video I/O: the port of ``terran_tpu/io``'s video half (readers,
+writer, synthetic source, device feeding). Image loading
+(``open_image``, ``resolve_images``) waits with the PIL and requests leaf
+group in ROADMAP.md, Queue 1 item 4."""
 
 from terran_tpu_torch.io.video import (  # noqa
-    device_prefetch, fixed_shape_batches, threaded_device_put,
+    EndOfVideo, ParallelVideo, SyntheticVideo, Video, VideoClosed,
+    VideoWriter, device_prefetch, fixed_shape_batches, open_video,
+    open_video_parallel, threaded_device_put, write_video,
 )

@@ -105,6 +105,27 @@ SCRIPT = textwrap.dedent(f"""
     for key in ("boxes", "mask", "embeddings", "embeddings_mask"):
         assert np.array_equal(result_host[key], result[key]), key
     print("host plan:", int(result_host["mask"].sum()), "faces")
+
+    # The host layers: tracking (scipy is allowed), video sources, the
+    # multiplexer, tiled detection and recognition without landmarks.
+    from terran_tpu_torch.io.streams import StreamMultiplexer
+    from terran_tpu_torch.io.video import SyntheticVideo
+    from terran_tpu_torch.ops.tiling import TiledDetector
+    from terran_tpu_torch.tracking import Sort
+    import terran_tpu_torch.io.video.parallel
+    import terran_tpu_torch.io.video.writer
+
+    tracked = Sort(min_hits=0).update(faces[0][:2])
+    assert len(tracked) == len(faces[0][:2]), tracked
+    mux = StreamMultiplexer([SyntheticVideo(32, 16, 3, seed=0),
+                             SyntheticVideo(32, 16, 2, seed=1)],
+                            batch_size=4)
+    metas = [meta for _, meta in mux]
+    assert metas == [[(0, 0), (1, 0), (0, 1), (1, 1)], [(0, 2)]], metas
+    tiled = TiledDetector(det, tile=64, overlap=16)(images[0, :48, :64])
+    assert tiled and all(f["landmarks"].shape == (5, 2) for f in tiled)
+    whole = rec.call([images[0], images[0][:20, :40]])
+    assert whole.shape == (2, 512), whole.shape
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
@@ -168,3 +189,20 @@ def test_sources_import_nothing_blocked():
                 continue
             assert name.split(".")[0] not in BLOCKED, (rel, function, name)
     assert lazy_cv2 == LAZY_CV2
+
+
+# The JAX package's public names that wait for the leaf group of
+# ROADMAP.md Queue 1 item 4 (PIL, requests, cairo).
+NOT_PORTED = {"open_image", "resolve_images", "display_image", "vis_faces",
+              "vis_poses"}
+
+
+def test_public_names_resolve_and_only_the_leaf_group_is_missing():
+    import terran_tpu
+    import terran_tpu_torch
+
+    for name in terran_tpu_torch.__all__:
+        assert getattr(terran_tpu_torch, name) is not None, name
+    assert set(terran_tpu.__all__) - set(terran_tpu_torch.__all__) \
+        == NOT_PORTED
+    assert set(terran_tpu_torch.__all__) <= set(terran_tpu.__all__)

@@ -6,11 +6,15 @@ sample coordinates differ by an FMA-contraction ulp between XLA and torch,
 so a crop pixel next to a .5 tie can round one count apart (crops compare
 within one count). Embeddings are unit vectors and compare within atol
 1e-4: float32 summation order through 100 layers moves them by about
-1e-5, and so does a crop value one count apart.
+1e-5, and so does a crop value one count apart. Without landmarks both
+packages resize whole images with PIL's BICUBIC arithmetic (the JAX
+package through PIL, the port in float64 on tensors): the crops are
+held within one count and counted for differing values.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from terran_tpu.face.detection import RetinaFaceDetector as JaxDetector
 from terran_tpu.face.recognition import ArcFaceRecognizer as JaxRecognizer
@@ -18,7 +22,9 @@ from terran_tpu.utils.convert import convert_arcface as jax_convert_arcface
 from terran_tpu.utils.convert import convert_retinaface as jax_convert_rf
 from terran_tpu_torch.face import Recognition
 from terran_tpu_torch.face.detection import RetinaFaceDetector
-from terran_tpu_torch.face.recognition import ArcFaceRecognizer
+from terran_tpu_torch.face.recognition import (
+    ArcFaceRecognizer, preprocess_face_no_landmarks, resize_pil_bicubic,
+)
 from terran_tpu_torch.ops.warp import ARCFACE_TEMPLATE
 from terran_tpu_torch.utils.convert import convert_arcface, convert_retinaface
 from torch_oracle import random_arcface_state_dict, random_retinaface_state_dict
@@ -108,14 +114,83 @@ def test_recognition_task_split_and_expansion(recognizer, scene):
         task(images[:2], faces[:1])
 
 
-def test_no_landmarks_branch_raises(recognizer, scene):
+# (H, W) of whole-image faces: upscaled, downscaled, odd aspect ratios, a
+# side of one pixel, squares at, above and below the crop side.
+NO_LANDMARK_SHAPES = [(37, 51), (200, 160), (640, 480), (90, 300),
+                      (1, 80), (80, 1), (1, 1), (112, 112), (150, 150),
+                      (13, 9), (500, 47), (1080, 1920)]
+
+
+@pytest.mark.parametrize("shape", NO_LANDMARK_SHAPES)
+def test_preprocess_face_no_landmarks_matches_pil(shape):
+    """The port's PIL-free resize + pad against the JAX package's PIL one:
+    within one uint8 count (it computes PIL's fixed-point arithmetic, so
+    no value differs)."""
+    from terran_tpu.face.recognition import (
+        preprocess_face_no_landmarks as jax_preprocess,
+    )
+
+    image = np.random.default_rng(sum(shape)).integers(
+        0, 256, shape + (3,), dtype=np.uint8)
+    got = preprocess_face_no_landmarks(image)
+    assert got.dtype == torch.uint8 and got.shape == (112, 112, 3)
+    exp = jax_preprocess(image)
+    diff = np.abs(got.numpy().astype(np.int32) - exp.astype(np.int32))
+    assert diff.max() <= 1
+    assert int((diff > 0).sum()) == 0, f"{int((diff > 0).sum())} differ"
+
+
+@pytest.mark.parametrize("size,new", [((50, 70), (99, 33)),
+                                      ((7, 300), (2, 5)),
+                                      ((1000, 1000), (997, 3))])
+def test_resize_pil_bicubic_matches_pil(size, new):
+    from PIL import Image
+
+    image = np.random.default_rng(5).integers(0, 256, size + (3,),
+                                              dtype=np.uint8)
+    got = resize_pil_bicubic(torch.from_numpy(image), *new).numpy()
+    exp = np.asarray(Image.fromarray(image).resize(new))
+    np.testing.assert_array_equal(got, exp)
+
+
+def test_preprocess_rejects_a_zero_side_like_pil():
+    """A side that scales to 0 pixels: PIL's resize raises, so does the
+    port."""
+    from terran_tpu.face.recognition import (
+        preprocess_face_no_landmarks as jax_preprocess,
+    )
+
+    image = np.zeros((3, 700, 3), np.uint8)
+    with pytest.raises(ValueError, match="must be > 0"):
+        jax_preprocess(image)
+    with pytest.raises(ValueError, match="must be > 0"):
+        preprocess_face_no_landmarks(image)
+
+
+@pytest.mark.parametrize("count", [1, 3])
+def test_no_landmarks_call_matches_jax(recognizer, jax_recognizer, scene,
+                                       count):
+    """``call(images)`` without faces: one (N, 512) array of the whole
+    images' embeddings, as the JAX package returns."""
     images, _ = scene
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        recognizer.call(images[:1], None)
+    got = recognizer.call(images[:count])
+    exp = jax_recognizer.call(images[:count])
+    assert isinstance(got, np.ndarray) and got.shape == (count, 512)
+    assert got.dtype == exp.dtype == np.float32
+    np.testing.assert_allclose(got, exp, rtol=0, atol=EMB_ATOL)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, rtol=1e-5)
+
+
+def test_no_landmarks_task_expansion(recognizer, scene):
+    """The task API: a single image without faces gives its (512,)
+    embedding, a list gives (N, 512), no images give an empty list."""
+    images, _ = scene
     task = Recognition.__new__(Recognition)
     task.model = recognizer
-    with pytest.raises(NotImplementedError):
-        task(images[0])
+    batch = task(images[:2])
+    assert batch.shape == (2, 512)
+    np.testing.assert_allclose(task(images[0]), batch[0], rtol=0, atol=1e-6)
+    assert task([]) == []
 
 
 def test_face_path_matches_jax(recognizer, jax_recognizer):
