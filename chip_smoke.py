@@ -82,6 +82,17 @@ Phases (any failure raises, exits nonzero and prints no result line):
    each kept face a tile's detection at its origin, timed;
    recognition without landmarks on 8 crops of assorted sizes: the
    card's resize + pad against the CPU's, unit (8, 512) embeddings;
+   the opt-in int8 trunks (their product is ``torch._int_mm``, a library
+   call, not a kernel of the repository): every distinct quantised conv
+   of Int8FaceResNet100 and Int8BodyPoseModel at the pipeline's shapes
+   (64 crops; 8 frames at pose side 184), bf16, the im2col + _int_mm path
+   against the plain float64 conv on the card (int32 accumulators, scale
+   and outputs equal), its call ms beside cuDNN's bf16 conv of the shape
+   and its bound; both task APIs with 'int8', ms a call beside native;
+   right after the native pipeline, this slice's main path: the same
+   pipeline with ``embed_precision='int8', pose_precision='int8'``
+   (warmup, one batch, a dispatch under the sync check, 3 timed sweeps,
+   each kernel exactly 2 launches a batch, the _int_mm calls a batch);
 5. float32 with TF32 off: the fused path and the materialised path
    (``fused_peaks='off'``) give equal keypoints, and the card's forward
    agrees with the CPU's on a small input; the same for RetinaFace and
@@ -90,14 +101,17 @@ Phases (any failure raises, exits nonzero and prints no result line):
    card, and the card's pipeline agrees with a CPU pipeline on a small
    input (``pipeline_float32_phase`` states the tolerances); the host
    plan against the device plan on the card at dyadic scales
-   (``pipeline_host_float32_phase``);
+   (``pipeline_host_float32_phase``); both int8 trunks through the
+   _int_mm path equal the same modules through the plain float64 convs
+   on the card, and the int8 embeddings' cosine to float32;
 6. ``torch.profiler``: the CUDA kernels of one peak-scan call (at most 2),
    the kernels' device time at K=16, 32 and 128, and the CUDA kernels of
    one NMS suppression call (2: mask and sweep) with each one's device
    time at K=64, 256 and 1024;
 7. JSON lines describing the pipeline, its host plan, the streams, the
-   tiled call, recognition without landmarks and the kernels, then the
-   card's line, then the result line.
+   int8 trunks and their conv shapes, the tiled call, recognition
+   without landmarks and the kernels, then the card's line, then the
+   result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -120,6 +134,10 @@ PLATEAU_PEAKS = (23 * 8 - 2) * (40 * 8 - 2)  # interior of a 184x320 field
 # H100 SXM published peaks: float32 outside the tensor cores, HBM3.
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# Dense int8 tensor-core rate (the int8 trunks' products).
+PEAK_INT8_OPS = 1979e12
+CROP = 112        # FaceResNet100's input side
+POSE_SIDE = 184   # the pose short side of the task API and the pipeline
 DETECT_SHAPE = (416, 739)  # 1080p at the default short side 416
 ANCHORS = 12740            # RetinaFace anchors at 416x739
 FACES_PER_FRAME = 8
@@ -1534,6 +1552,366 @@ def recognition_no_landmarks_phase(arc_params, dev, card):
             "max_count_diff": worst}
 
 
+# ---------------------------------------------------------------------------
+# The opt-in int8 trunks: torch._int_mm (cuBLASLt's IMMA product, a library
+# call) behind each quantised conv, no kernel of the repository.
+# ---------------------------------------------------------------------------
+
+def int8_models(arc_params, pose_params, dtype, dev):
+    """Int8FaceResNet100 and Int8BodyPoseModel in ``dtype`` on ``dev``,
+    quantised from the float32 weights."""
+    from terran_tpu_torch.models import arcface, openpose
+
+    rec = arcface.Int8FaceResNet100(dtype)
+    rec.load_state_dict(arcface.quantize_params(arc_params, dtype))
+    pose = openpose.Int8BodyPoseModel(dtype)
+    pose.load_state_dict(openpose.quantize_params(pose_params, dtype))
+    return rec.to(dev).eval(), pose.to(dev).eval()
+
+
+def quant_conv_calls(model, x):
+    """[(module, input shape)] of every quantised conv in one forward of
+    ``model`` on ``x``, in order."""
+    import torch
+
+    from terran_tpu_torch.models import quant
+
+    calls, hooks = [], []
+    for module in model.modules():
+        if isinstance(module, quant.QuantConv2d):
+            hooks.append(module.register_forward_pre_hook(
+                lambda m, args: calls.append((m, tuple(args[0].shape)))))
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return calls
+
+
+def int8_pipeline_inputs(dev, dtype):
+    """The inputs the int8 trunks take in the pipeline at bench.py's
+    configuration: BATCH x max_faces = 64 crops for the embed program,
+    BATCH 1080p frames resized to the pose short side 184."""
+    import torch
+
+    from terran_tpu_torch.ops.pose_decode import normalize_images
+    from terran_tpu_torch.ops.resize import resized_shape
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    crops = torch.randint(0, 256, (BATCH * PIPE_CONFIG["max_faces"],
+                                   CROP, CROP, 3), generator=gen,
+                          device=dev).to(torch.float32)
+    pose_h, pose_w, _ = resized_shape(*FRAME, POSE_SIDE)
+    frames = torch.randint(0, 256, (BATCH, pose_h, pose_w, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    return crops, normalize_images(frames).to(dtype)
+
+
+def int8_conv_bound_ms(m, k, n, in_bytes, out_bytes, weight_bytes):
+    """Least time of one quantised conv: 2 m k n int8 operations at the
+    tensor cores' int8 rate, or the input read once, the int8 weight read
+    once and the output written once over HBM; the larger, and which."""
+    t_ops = 2 * m * k * n / PEAK_INT8_OPS
+    t_bytes = (in_bytes + out_bytes + weight_bytes) / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def int8_conv_phase(arc_params, pose_params, dev, card):
+    """Every distinct quantised conv of both trunks at the pipeline's
+    shapes, bf16: the CUDA path (im2col + torch._int_mm) against the plain
+    float64 conv on the card, int32 accumulators, activation scale and
+    outputs equal; the call timed beside cuDNN's bf16 conv of the same
+    shape and against its bound. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from terran_tpu_torch.models import quant
+
+    dtype = torch.bfloat16
+    rec, pose = int8_models(arc_params, pose_params, dtype, dev)
+    crops, pose_in = int8_pipeline_inputs(dev, dtype)
+    groups = {}
+    for model_name, model, x in (("arcface", rec, crops),
+                                 ("openpose", pose, pose_in)):
+        for module, shape in quant_conv_calls(model, x):
+            cout, cin, kernel, _ = module.weight_q.shape
+            key = (model_name, cin, cout, kernel, module.stride,
+                   module.padding, shape)
+            groups.setdefault(key, [module, 0])[1] += 1
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows = []
+    for key, (module, count) in groups.items():
+        model_name, cin, cout, kernel, stride, padding, shape = key
+        x = torch.randn(shape, generator=gen, device=dev).relu().to(dtype)
+        wq, ws, wm = module.weight_q, module.weight_scale, module.weight_mat
+        acc, xs = quant.quant_conv_int32(x, wq, stride, padding, wm)
+        acc_plain, xs_plain = quant.quant_conv_int32_plain(x, wq, stride,
+                                                           padding)
+        out = quant.quant_conv(x, wq, ws, stride, padding, dtype, wm)
+        out_plain = quant.dequantize(acc_plain, xs_plain, ws, dtype)
+        torch.cuda.synchronize()
+        if not (torch.equal(acc, acc_plain) and torch.equal(xs, xs_plain)
+                and torch.equal(out, out_plain)):
+            raise AssertionError(f"int8 conv {key}: the _int_mm path and the "
+                                 "plain float64 conv differ")
+        xq, _ = quant.quantize_activation(x)
+        cols, (n, ho, wo) = quant.im2col_int8(xq, kernel, stride, padding)
+        ms = time_ms(lambda: quant.quant_conv(x, wq, ws, stride, padding,
+                                              dtype, wm))
+        int_mm_ms = time_ms(lambda: torch._int_mm(cols, wm))
+        # The same product with the weight matrix row-major: the layout
+        # conv_weight_matrix does not take.
+        wm_rows = wm.contiguous()
+        int_mm_row_major_ms = time_ms(lambda: torch._int_mm(cols, wm_rows))
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        w_bf16 = wq.to(dtype)
+        library_ms = time_ms(lambda: F.conv2d(x_nchw, w_bf16, stride=stride,
+                                              padding=padding))
+        m, k = n * ho * wo, kernel * kernel * cin
+        bound_ms, bound_by = int8_conv_bound_ms(
+            m, k, cout, x.numel() * x.element_size(),
+            m * cout * out.element_size(), wq.numel())
+        rows.append({
+            "model": model_name, "cin": cin, "cout": cout, "k": kernel,
+            "stride": stride, "input": list(shape), "m": m,
+            "k_padded": cols.shape[1], "n_padded": wm.shape[1],
+            "exact": True, "max_abs_err": 0.0,
+            "acc_max": int(acc.abs().max()), "ms": ms,
+            "int_mm_ms": int_mm_ms,
+            "int_mm_row_major_ms": int_mm_row_major_ms,
+            "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "im2col_bytes": cols.numel() + m * wm.shape[1] * 4,
+            "launches_per_batch": count,
+        })
+        log(f"int8 conv == plain ({card}): {model_name} {cin}->{cout} "
+            f"k{kernel} s{stride} on {tuple(shape)} (M={m}, K={k}->"
+            f"{cols.shape[1]}, N={cout}->{wm.shape[1]}) x{count} a batch: "
+            f"quant_conv {ms:.4f} ms (_int_mm {int_mm_ms:.4f}, row-major "
+            f"weights {int_mm_row_major_ms:.4f}), cuDNN bf16 "
+            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
+            f"im2col {rows[-1]['im2col_bytes'] / 1e6:.1f} MB")
+    for name in ("arcface", "openpose"):
+        rows_of = [r for r in rows if r["model"] == name]
+        log(f"int8 {name} at the pipeline's shapes: "
+            f"{sum(r['launches_per_batch'] for r in rows_of)} convs a batch, "
+            f"quant_conv "
+            f"{sum(r['ms'] * r['launches_per_batch'] for r in rows_of):.3f} "
+            f"ms against cuDNN bf16 "
+            f"{sum(r['library_ms'] * r['launches_per_batch'] for r in rows_of):.3f}"
+            f" ms, bound "
+            f"{sum(r['bound_ms'] * r['launches_per_batch'] for r in rows_of):.4f}"
+            f" ms, im2col "
+            f"{sum(r['im2col_bytes'] * r['launches_per_batch'] for r in rows_of) / 1e9:.3f} GB")
+    return rows
+
+
+def int8_float32_phase(arc_params, pose_params, dev, card):
+    """float32, TF32 off: Int8FaceResNet100 on 8 seeded crops and
+    Int8BodyPoseModel on one 184-side frame through the CUDA path equal
+    the same modules through the plain float64 convs on the card; the
+    embedding cosine of int8 against the float32 FaceResNet100."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.models import arcface, quant
+    from terran_tpu_torch.models.arcface import normalize_embeddings
+    from terran_tpu_torch.ops.pose_decode import normalize_images
+    from terran_tpu_torch.ops.resize import resized_shape
+
+    rec, pose = int8_models(arc_params, pose_params, torch.float32, dev)
+    rng = np.random.default_rng(SEED + 7)
+    crops = torch.as_tensor(rng.integers(0, 256, (8, CROP, CROP, 3)),
+                            dtype=torch.float32, device=dev)
+    pose_h, pose_w, _ = resized_shape(*FRAME, POSE_SIDE)
+    frame = normalize_images(torch.as_tensor(
+        rng.integers(0, 256, (1, pose_h, pose_w, 3), dtype=np.uint8),
+        device=dev))
+
+    def run():
+        with torch.inference_mode():
+            return rec(crops), pose(frame)
+
+    quant.quant_conv.launches = 0
+    feats, (paf, heat) = run()
+    launches = quant.quant_conv.launches
+    cuda_path = quant.quant_conv_int32
+    quant.quant_conv_int32 = (lambda x, weight_q, stride, padding,
+                              weight_mat=None: quant.quant_conv_int32_plain(
+                                  x, weight_q, stride, padding))
+    try:
+        feats_plain, (paf_plain, heat_plain) = run()
+    finally:
+        quant.quant_conv_int32 = cuda_path
+    torch.cuda.synchronize()
+    if launches != 103 + 92:
+        raise AssertionError(f"{launches} _int_mm calls in one forward of "
+                             "each int8 trunk, expected 103 + 92")
+    for name, got, ref in (("embedding features", feats, feats_plain),
+                           ("pafs", paf, paf_plain),
+                           ("heatmaps", heat, heat_plain)):
+        if not torch.equal(got, ref):
+            err = float((got - ref).abs().max())
+            raise AssertionError(f"int8 {name}: the _int_mm path and the "
+                                 f"plain convs differ by {err}")
+    native = arcface.FaceResNet100()
+    native.load_state_dict(arc_params)
+    with torch.inference_mode():
+        ref = normalize_embeddings(native.to(dev).eval()(crops))
+    cosine = (normalize_embeddings(feats) * ref).sum(-1)
+    log(f"int8 float32 ({card}): {launches} _int_mm calls; embeddings "
+        f"{tuple(feats.shape)}, pafs {tuple(paf.shape)} and heatmaps "
+        f"{tuple(heat.shape)} equal to the plain convs on the card; "
+        f"embedding cosine int8 vs float32 FaceResNet100 min "
+        f"{float(cosine.min()):.6f} mean {float(cosine.mean()):.6f}")
+    if not bool((cosine > 0.98).all()):
+        raise AssertionError(f"int8 embeddings far from float32: {cosine}")
+    return {"int_mm_calls": launches, "equal_to_plain": True,
+            "embedding_cosine_min": float(cosine.min()),
+            "embedding_cosine_mean": float(cosine.mean())}
+
+
+def int8_task_phase(arc_params, pose_params, frames, rng, card, native_ms):
+    """Both task APIs with 'int8', bf16, on ``frames``: ms a call beside
+    the native calls of this run, the _int_mm calls and kernel launches
+    they made."""
+    import numpy as np
+
+    from terran_tpu_torch.face import Recognition
+    from terran_tpu_torch.models import quant
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.pose import Estimation
+
+    pose = Estimation(params=pose_params, pose_precision="int8")
+    fp.find_peaks_fused.launches = quant.quant_conv.launches = 0
+    people, warm_s, pose_ms = timed_calls(lambda: pose(frames))
+    pose_launches = {"int_mm": quant.quant_conv.launches,
+                     "fused_peaks": fp.find_peaks_fused.launches}
+    if min(pose_launches.values()) < 1 + TIMED_CALLS:
+        raise AssertionError(f"int8 pose task: launches {pose_launches}")
+    assert len(people) == len(frames)
+    for frame_people in people:
+        for person in frame_people:
+            assert person["keypoints"].shape == (18, 3)
+            assert np.isfinite(person["score"])
+
+    recognition = Recognition(params=arc_params, embed_precision="int8")
+    face_lists = synthetic_faces(rng, len(frames))
+    quant.quant_conv.launches = 0
+    feats, rec_warm_s, rec_ms = timed_calls(
+        lambda: recognition(list(frames), face_lists))
+    rec_launches = quant.quant_conv.launches
+    for frame_feats in feats:
+        assert frame_feats.shape == (FACES_PER_FRAME, 512)
+        if not np.allclose(np.linalg.norm(frame_feats, axis=1), 1.0,
+                           rtol=1e-5):
+            raise AssertionError("int8 embeddings are not unit vectors")
+    log(f"int8 task APIs ({card}), bf16, {len(frames)} 1080p frames: pose "
+        f"{pose_ms:.2f} ms a call (native {native_ms['pose']:.2f}; warm "
+        f"{warm_s:.3f} s; launches {pose_launches}); recognition of "
+        f"{FACES_PER_FRAME} faces a frame {rec_ms:.2f} ms a call (native "
+        f"{native_ms['recognition']:.2f}; warm {rec_warm_s:.3f} s; "
+        f"{rec_launches} _int_mm calls)")
+    return {"pose_ms": pose_ms, "recognition_ms": rec_ms,
+            "native_pose_ms": native_ms["pose"],
+            "native_recognition_ms": native_ms["recognition"],
+            "pose_launches": pose_launches,
+            "recognition_int_mm_calls": rec_launches}
+
+
+def pipeline_int8_phase(params, batches, card, native):
+    """The main path of this slice: the pipeline's device plan with both
+    int8 trunks at bench.py's configuration, bf16, right after the native
+    pipeline: warmup, one batch, a dispatch under the sync check, then
+    PIPE_SWEEPS timed sweeps with the counts set to 0 before them: each
+    hand-written kernel exactly 2 launches a batch, the _int_mm calls a
+    batch."""
+    import torch
+
+    from terran_tpu_torch.models import quant
+    from terran_tpu_torch.models.arcface import Int8FaceResNet100
+    from terran_tpu_torch.models.openpose import Int8BodyPoseModel
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+    from terran_tpu_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    pipe = PerceptionPipeline(**pipeline_kwargs(
+        params, timer=timer, embed_precision="int8", pose_precision="int8"))
+    if not (isinstance(pipe.rec_model, Int8FaceResNet100)
+            and isinstance(pipe.pose_model, Int8BodyPoseModel)
+            and pipe.rec_model.compute_dtype == torch.bfloat16
+            and pipe.pose_model.compute_dtype == torch.bfloat16):
+        raise AssertionError("the int8 pipeline must run both int8 trunks "
+                             "in bf16")
+    if pipe.rec_params["initial.conv.weight_q"].dtype != torch.int8:
+        raise AssertionError("rec_params must hold the quantised weights")
+    start = time.perf_counter()
+    programs = pipe.warmup(BATCH, *FRAME)
+    warm_s = time.perf_counter() - start
+    check_pipeline_result(pipe.process_batch(batches[0]), BATCH, PIPE_CONFIG)
+    frames_dev = pipe.put_frames(batches[0])
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dispatched = pipe.dispatch_batch(frames_dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check_pipeline_result(pipe.finalize_batch(*dispatched), BATCH,
+                          PIPE_CONFIG)
+    for _ in pipe.process_stream(batches[:2], depth=PIPE_DEPTH):
+        pass
+
+    timer.reset()
+    fp.find_peaks_fused.launches = 0
+    nms.suppress.launches = 0
+    quant.quant_conv.launches = 0
+    fps = []
+    for _ in range(PIPE_SWEEPS):
+        start = time.perf_counter()
+        outs = list(pipe.process_stream(batches, depth=PIPE_DEPTH))
+        fps.append(BATCH * PIPE_BATCHES / (time.perf_counter() - start))
+        for out in outs:
+            check_pipeline_result(out, BATCH, PIPE_CONFIG)
+    swept = PIPE_SWEEPS * PIPE_BATCHES
+    launches = {"fused_peaks": fp.find_peaks_fused.launches,
+                "nms": 2 * nms.suppress.launches,
+                "int_mm": quant.quant_conv.launches}
+    for name in ("fused_peaks", "nms"):
+        if launches[name] != 2 * swept:
+            raise AssertionError(f"the int8 pipeline launched {name}'s "
+                                 f"kernels {launches[name]} times over "
+                                 f"{swept} batches, expected 2 a batch")
+    if launches["int_mm"] < 92 * swept:
+        raise AssertionError(f"{launches['int_mm']} _int_mm calls over "
+                             f"{swept} batches: the int8 trunks did not run")
+    fps_median = sorted(fps)[len(fps) // 2]
+    summary = timer.summary()
+    per_batch = {name: count / swept for name, count in launches.items()}
+    log(f"int8 pipeline ({card}): {PIPE_SWEEPS} sweeps of {PIPE_BATCHES} "
+        f"batches x {BATCH} x {FRAME[0]}x{FRAME[1]}, {PIPE_CONFIG}, bf16, "
+        f"embed and pose int8: warmup {programs} programs in {warm_s:.3f} "
+        f"s; frames/s per sweep " + ", ".join(f"{f:.2f}" for f in fps)
+        + f"; median {fps_median:.2f} frames/s = "
+        f"{BATCH * 1e3 / fps_median:.2f} ms/batch, against native "
+        f"{native['fps_median']:.2f} in this run "
+        f"({fps_median / native['fps_median']:.3f}x); launches per batch "
+        f"{per_batch}")
+    log("int8 pipeline stage timer (host wall time, the sweeps): "
+        + json.dumps(summary))
+    return {"fps": fps, "fps_median": fps_median,
+            "batch_ms": BATCH * 1e3 / fps_median,
+            "native_fps_median": native["fps_median"],
+            "native_fps": native["fps"],
+            "ratio_to_native": fps_median / native["fps_median"],
+            "launches": launches, "launches_per_batch": per_batch,
+            "batches": swept, "warmup_programs": programs,
+            "stages": summary}
+
+
 def main():
     import torch
 
@@ -1749,6 +2127,12 @@ def main():
 
     nms_calls, det_ms = detection_phase(rf_params, frames, card)
     rec_ms = recognition_phase(arc_params, frames, face_rng, card)
+    # The int8 trunks: every quantised conv shape against its plain
+    # version, then both task APIs with 'int8'.
+    int8_convs = int8_conv_phase(arc_params, state_dict, dev, card)
+    int8_tasks = int8_task_phase(arc_params, state_dict, frames, face_rng,
+                                 card, {"pose": batch_ms,
+                                        "recognition": rec_ms})
 
     # The perception pipeline, this slice's main path: detect + embed +
     # pose over batches, both kernels on every batch.
@@ -1756,6 +2140,9 @@ def main():
     batches = pipeline_batches()
     pipe, warm_pipe = pipeline_phase(pipe_params, batches, card, {
         "pose": batch_ms, "detection": det_ms, "recognition": rec_ms})
+    # This slice's main path: the same pipeline with both int8 trunks,
+    # right after the native one.
+    pipe_int8 = pipeline_int8_phase(pipe_params, batches, card, pipe)
     # This slice's main path: concurrent streams with tracking through
     # the warm pipeline.
     streams = streams_phase(warm_pipe, card)
@@ -1815,6 +2202,7 @@ def main():
         log(f"card vs CPU float32 forward: {name} max abs error {err:.2e}")
 
     face_float32_phase(rf_params, arc_params, face_rng, dev)
+    int8_f32 = int8_float32_phase(arc_params, state_dict, dev, card)
     pipeline_float32_phase(pipe_params, face_rng, dev, card)
     host_f32 = pipeline_host_float32_phase(pipe_params, face_rng, dev, card)
 
@@ -1916,6 +2304,17 @@ def main():
         "environment": env,
         "card": card,
     }}))
+    log(json.dumps({"int8": {
+        "pipeline": {key: pipe_int8[key] for key in (
+            "fps_median", "fps", "batch_ms", "native_fps_median",
+            "native_fps", "ratio_to_native", "launches_per_batch",
+            "warmup_programs")},
+        "task_apis": int8_tasks, "float32_models": int8_f32,
+        "device_product": "torch._int_mm (library call, not a kernel of "
+                          "the repository)",
+        "card": card,
+    }}))
+    log(json.dumps({"int8_convs": int8_convs}))
     log(json.dumps({"tiled": dict(tiled, card=card)}))
     log(json.dumps({"recognition_no_landmarks": dict(no_landmarks,
                                                      card=card)}))
@@ -1944,6 +2343,8 @@ def main():
         "pipeline_batches": pipe["batches"],
         "pipeline_launches_per_batch":
             pipe["launches"]["fused_peaks"] / pipe["batches"],
+        "pipeline_int8_launches_per_batch":
+            pipe_int8["launches_per_batch"]["fused_peaks"],
         "pipeline_host_launches": pipe_host["launches"]["fused_peaks"],
         "pipeline_host_launches_per_batch":
             pipe_host["launches"]["fused_peaks"] / pipe_host["batches"],
@@ -1990,6 +2391,8 @@ def main():
         "pipeline_batches": pipe["batches"],
         "pipeline_launches_per_batch":
             pipe["launches"]["nms"] / pipe["batches"],
+        "pipeline_int8_launches_per_batch":
+            pipe_int8["launches_per_batch"]["nms"],
         "pipeline_host_launches": pipe_host["launches"]["nms"],
         "pipeline_host_launches_per_batch":
             pipe_host["launches"]["nms"] / pipe_host["batches"],

@@ -19,7 +19,8 @@ from terran_tpu_torch.checkpoint import (
 )
 from terran_tpu_torch.config import get_config
 from terran_tpu_torch.models.arcface import (
-    EMBEDDING_DIM, FaceResNet100, normalize_embeddings,
+    EMBEDDING_DIM, FaceResNet100, Int8FaceResNet100, normalize_embeddings,
+    quantize_params,
 )
 from terran_tpu_torch.ops.warp import alignment_matrices, warp_affine_batch
 from terran_tpu_torch.runtime import (
@@ -133,7 +134,8 @@ class ArcFaceRecognizer:
         converted checkpoint store). ``device``: where the model runs, the
         CUDA card unless the caller names another (``"cpu"``).
         ``embed_precision``: 'native' (default: config
-        ``embed_precision``); 'int8' raises until it is ported."""
+        ``embed_precision``) or 'int8', the int8 trunk quantised from the
+        float32 ``params``."""
         cfg = get_config()
         self.embed_precision = check_precision(
             "embed_precision",
@@ -146,12 +148,17 @@ class ArcFaceRecognizer:
             params = load_checkpoint_params(self.CHECKPOINT_CLASS)
         self.device = resolve_device(device)
         dtype = compute_dtype or default_policy().compute_dtype
-        # The float32 'embed' projection keeps float32 weights.
-        params = cast_params_for_compute(
-            params, dtype, keep_f32=PARAMS_KEEP_F32["arcface"]
-        )
-        model = FaceResNet100().to(dtype=dtype)
-        model.embed.to(torch.float32)
+        if self.embed_precision == "int8":
+            # Quantised from the float32 masters, before any cast.
+            params = quantize_params(params, dtype)
+            model = Int8FaceResNet100(dtype)
+        else:
+            # The float32 'embed' projection keeps float32 weights.
+            params = cast_params_for_compute(
+                params, dtype, keep_f32=PARAMS_KEEP_F32["arcface"]
+            )
+            model = FaceResNet100().to(dtype=dtype)
+            model.embed.to(torch.float32)
         model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).eval()
         self.image_side = image_side

@@ -17,6 +17,9 @@ import torch
 from torch import nn
 
 from terran_tpu_torch.models.layers import ConvBias, max_pool_2x2
+from terran_tpu_torch.models.quant import (
+    QuantConv2d, keep_float64_copies, quantize_state_dict,
+)
 
 PAF_CHANNELS = 38
 HEATMAP_CHANNELS = 19
@@ -43,67 +46,140 @@ def _refine_names(stage, branch):
     return [f"Mconv{i}_stage{stage}_L{branch}" for i in range(1, 8)]
 
 
+def _layer_specs():
+    """(name, in, out, kernel, padding, act) of every conv, in forward
+    order."""
+    specs = [(name, cin, cout, 3, 1, "relu") for name, cin, cout in _BLOCK0]
+    # Stage 1 branches (model.py:58-71); final convs have no ReLU.
+    for branch, out_ch in ((1, PAF_CHANNELS), (2, HEATMAP_CHANNELS)):
+        specs += [(f"conv5_{i}_CPM_L{branch}", 128, 128, 3, 1, "relu")
+                  for i in range(1, 4)]
+        specs += [(f"conv5_4_CPM_L{branch}", 128, 512, 1, 0, "relu"),
+                  (f"conv5_5_CPM_L{branch}", 512, out_ch, 1, 0, "none")]
+    # Stages 2-6 (model.py:77-98,120-139).
+    for stage in range(2, 7):
+        for branch, out_ch in ((1, PAF_CHANNELS), (2, HEATMAP_CHANNELS)):
+            specs += [(f"Mconv{i}_stage{stage}_L{branch}",
+                       STAGE_CHANNELS if i == 1 else 128, 128, 7, 3, "relu")
+                      for i in range(1, 6)]
+            # Reference quirk kept for parity: its no-ReLU list names
+            # 'Mconv7_stage6_L1' twice instead of L2 (model.py:32-39), so
+            # the final stage-6 *heatmap* conv is followed by a ReLU while
+            # every other Mconv7 is not.
+            act = "relu" if (stage == 6 and branch == 2) else "none"
+            specs += [(f"Mconv6_stage{stage}_L{branch}", 128, 128, 1, 0,
+                       "relu"),
+                      (f"Mconv7_stage{stage}_L{branch}", 128, out_ch, 1, 0,
+                       act)]
+    return specs
+
+
 class BodyPoseModel(nn.Module):
     """(N, H, W, 3) -> (pafs, heatmaps) NHWC tensors at 1/8 resolution."""
 
     def __init__(self):
         super().__init__()
-        for name, cin, cout in _BLOCK0:
-            self.add_module(
-                name, ConvBias(cin, cout, 3, padding=1, act="relu")
-            )
-
-        # Stage 1 branches (model.py:58-71); final convs have no ReLU.
-        for branch, out_ch in ((1, PAF_CHANNELS), (2, HEATMAP_CHANNELS)):
-            for i in range(1, 4):
-                self.add_module(f"conv5_{i}_CPM_L{branch}",
-                                ConvBias(128, 128, 3, padding=1, act="relu"))
-            self.add_module(f"conv5_4_CPM_L{branch}",
-                            ConvBias(128, 512, 1, act="relu"))
-            self.add_module(f"conv5_5_CPM_L{branch}",
-                            ConvBias(512, out_ch, 1))
-
-        # Stages 2-6 (model.py:77-98,120-139).
-        for stage in range(2, 7):
-            for branch, out_ch in ((1, PAF_CHANNELS), (2, HEATMAP_CHANNELS)):
-                cin = STAGE_CHANNELS
-                for i in range(1, 6):
-                    self.add_module(
-                        f"Mconv{i}_stage{stage}_L{branch}",
-                        ConvBias(cin, 128, 7, padding=3, act="relu"),
-                    )
-                    cin = 128
-                self.add_module(f"Mconv6_stage{stage}_L{branch}",
-                                ConvBias(128, 128, 1, act="relu"))
-                # Reference quirk kept for parity: its no-ReLU list names
-                # 'Mconv7_stage6_L1' twice instead of L2 (model.py:32-39),
-                # so the final stage-6 *heatmap* conv is followed by a
-                # ReLU while every other Mconv7 is not.
-                act = "relu" if (stage == 6 and branch == 2) else "none"
-                self.add_module(f"Mconv7_stage{stage}_L{branch}",
-                                ConvBias(128, out_ch, 1, act=act))
+        for name, cin, cout, kernel, padding, act in _layer_specs():
+            self.add_module(name, ConvBias(cin, cout, kernel,
+                                           padding=padding, act=act))
 
     @property
     def compute_dtype(self):
         return self.conv1_1.weight.dtype
 
-    def _branch(self, x, names):
+    def forward(self, x):
+        paf, heat = _cpm_forward(self, x.permute(0, 3, 1, 2), max_pool_2x2,
+                                 channel_dim=1)
+        return paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1)
+
+
+def _cpm_forward(model, h, pool, channel_dim):
+    """The trunk, stage 1 and stages 2-6 of ``model``'s layers on ``h``;
+    ``pool`` halves it after conv1_2, conv2_2 and conv3_4."""
+
+    def branch(x, names):
         for name in names:
-            x = getattr(self, name)(x)
+            x = getattr(model, name)(x)
         return x
 
-    def forward(self, x):
-        h = x.permute(0, 3, 1, 2)
-        for name, _, _ in _BLOCK0:
-            h = getattr(self, name)(h)
-            if name in _POOL_AFTER:
-                h = max_pool_2x2(h)
-        trunk = h
+    for name, _, _ in _BLOCK0:
+        h = getattr(model, name)(h)
+        if name in _POOL_AFTER:
+            h = pool(h)
+    trunk = h
 
-        paf = self._branch(trunk, _stage1_names(1))
-        heat = self._branch(trunk, _stage1_names(2))
-        for stage in range(2, 7):
-            inp = torch.cat([paf, heat, trunk], dim=1)  # 185 channels
-            paf = self._branch(inp, _refine_names(stage, 1))
-            heat = self._branch(inp, _refine_names(stage, 2))
-        return paf.permute(0, 2, 3, 1), heat.permute(0, 2, 3, 1)
+    paf = branch(trunk, _stage1_names(1))
+    heat = branch(trunk, _stage1_names(2))
+    for stage in range(2, 7):
+        # 185 channels.
+        inp = torch.cat([paf, heat, trunk], dim=channel_dim)
+        paf = branch(inp, _refine_names(stage, 1))
+        heat = branch(inp, _refine_names(stage, 2))
+    return paf, heat
+
+
+# ---------------------------------------------------------------------------
+# Opt-in int8 trunk (terran_tpu/models/openpose.py::apply_int8)
+# ---------------------------------------------------------------------------
+# Every conv runs int8 x int8 -> int32 (models/quant.py); its bias adds in
+# float32 after the dequantisation, then the ReLU, then the cast to the
+# compute dtype. NHWC throughout, the JAX layout.
+
+
+class _Int8ConvBias(QuantConv2d):
+    """``conv`` of ``apply_int8``: the dequantised conv plus the bias in
+    float32 with one rounding, then the ReLU, then the cast to the compute
+    dtype. XLA compiles ``acc * (xs * scale) + bias`` into a fused
+    multiply-add, and that rounding decides the next conv's int8 values,
+    so the product and the sum run in float64, where the product is
+    exact."""
+
+    def __init__(self, in_channels, out_channels, kernel, padding, act,
+                 dtype):
+        super().__init__(in_channels, out_channels, kernel, 1, padding)
+        # Stored in the compute dtype (under bf16 it rounds through bf16),
+        # widened in the forward.
+        self.bias = nn.Parameter(torch.zeros(out_channels, dtype=dtype))
+        keep_float64_copies(self, "bias")
+        self.act = act
+
+    def forward(self, x):
+        acc, xs = self.accumulate(x)
+        y = torch.addcmul(self.bias64, acc.to(torch.float32),
+                          xs * self.weight_scale).to(torch.float32)
+        if self.act == "relu":
+            y = torch.relu(y)
+        return y.to(self.bias.dtype)
+
+
+def _max_pool_nhwc(x):
+    return max_pool_2x2(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class Int8BodyPoseModel(nn.Module):
+    """BodyPoseModel with every conv int8, built in ``compute_dtype``: the
+    same call surface and output layout, (N, H, W, 3) -> NHWC (pafs,
+    heatmaps). Its state dict comes from :func:`quantize_params` (or
+    ``params_from_jax`` of the JAX package's ``quantize_params`` tree)."""
+
+    def __init__(self, compute_dtype=torch.float32):
+        super().__init__()
+        for name, cin, cout, kernel, padding, act in _layer_specs():
+            self.add_module(name, _Int8ConvBias(cin, cout, kernel, padding,
+                                                act, compute_dtype))
+
+    @property
+    def compute_dtype(self):
+        return self.conv1_1.bias.dtype
+
+    def forward(self, x):
+        return _cpm_forward(self, x.to(self.compute_dtype), _max_pool_nhwc,
+                            channel_dim=-1)
+
+
+def quantize_params(model_or_state_dict, compute_dtype=torch.float32):
+    """The :class:`Int8BodyPoseModel` state dict of a float32
+    :class:`BodyPoseModel` (or its state dict): every conv int8 +
+    per-channel scales, the biases cast to ``compute_dtype``."""
+    return quantize_state_dict(model_or_state_dict, compute_dtype,
+                               is_conv=lambda prefix: True)

@@ -34,9 +34,14 @@ is enqueued: the host decisions (overflow, face and peak counts) run in
 a second stream, from pinned staging. ``process_stream`` dispatches batch
 *i+1* before batch *i*'s host stages run, as the JAX class does.
 
+``embed_precision='int8'`` and ``pose_precision='int8'`` (opt-in, off by
+default) run FaceResNet100 and OpenPose with int8 convs
+(``models/quant.py``), quantised from the float32 weights before the
+other leaves are cast to the compute dtype.
+
 Not ported, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``mesh`` (Queue 1 item 6), int8 trunks (item 5), and
-``limb_backend='matmul'`` (a TPU cost reformulation of the gather form).
+ROADMAP.md item: ``mesh`` (Queue 1 item 6) and ``limb_backend='matmul'``
+(a TPU cost reformulation of the gather form).
 The JAX class's windowed and grouped-slab embed warps, also TPU cost
 reformulations, give the full-frame warp's crops bit for bit; this port
 warps from the full frames, so ``pipeline_embed_windows`` is read and has
@@ -54,9 +59,17 @@ import numpy as np
 import torch
 
 from terran_tpu_torch.models.arcface import (
-    EMBEDDING_DIM, FaceResNet100, normalize_embeddings,
+    EMBEDDING_DIM, FaceResNet100, Int8FaceResNet100, normalize_embeddings,
 )
-from terran_tpu_torch.models.openpose import BodyPoseModel
+from terran_tpu_torch.models.arcface import (
+    quantize_params as quantize_arcface,
+)
+from terran_tpu_torch.models.openpose import (
+    BodyPoseModel, Int8BodyPoseModel,
+)
+from terran_tpu_torch.models.openpose import (
+    quantize_params as quantize_openpose,
+)
 from terran_tpu_torch.models.retinaface import (
     RetinaFace, make_detect_fn, unpack_detections,
 )
@@ -97,15 +110,30 @@ def _buckets(setting):
     return sorted(int(x) for x in str(setting).split(",") if str(x).strip())
 
 
-def _load(model, params, dtype, family, device):
-    """``model`` in ``dtype`` with ``params`` (a state dict or a
-    ``terran_tpu`` pytree), on ``device``, in eval mode."""
-    params = cast_params_for_compute(
-        as_state_dict(params), dtype, keep_f32=PARAMS_KEEP_F32[family]
-    )
-    model = model.to(dtype=dtype)
-    if family == "arcface":
-        model.embed.to(torch.float32)  # the projection computes in float32
+_MODELS = {"retinaface": RetinaFace, "arcface": FaceResNet100,
+           "openpose": BodyPoseModel}
+_INT8_MODELS = {"arcface": (Int8FaceResNet100, quantize_arcface),
+                "openpose": (Int8BodyPoseModel, quantize_openpose)}
+
+
+def _load(family, params, dtype, device, precision="native"):
+    """The ``family`` model in ``dtype`` with ``params`` (a state dict or
+    a ``terran_tpu`` pytree), on ``device``, in eval mode. Under
+    ``precision='int8'`` its convs are quantised from the float32 masters
+    before the other leaves are cast to ``dtype``, as the JAX class
+    quantises before its bf16 cast."""
+    params = as_state_dict(params)
+    if precision == "int8":
+        model_cls, quantize = _INT8_MODELS[family]
+        model = model_cls(dtype)
+        params = quantize(params, dtype)
+    else:
+        params = cast_params_for_compute(
+            params, dtype, keep_f32=PARAMS_KEEP_F32[family]
+        )
+        model = _MODELS[family]().to(dtype=dtype)
+        if family == "arcface":
+            model.embed.to(torch.float32)  # it computes in float32
     model.load_state_dict(params, strict=True)
     return model.to(device).eval()
 
@@ -301,18 +329,19 @@ class PerceptionPipeline:
         self._upload_stream = torch.cuda.Stream(self.device) if cuda else None
 
         dtype = compute_dtype or default_policy().compute_dtype
-        self.det_model = _load(RetinaFace(), det_params, dtype,
-                               "retinaface", self.device)
+        self.det_model = _load("retinaface", det_params, dtype, self.device)
         self.rec_model = (
             None if rec_params is None else
-            _load(FaceResNet100(), rec_params, dtype, "arcface", self.device)
+            _load("arcface", rec_params, dtype, self.device,
+                  self.embed_precision)
         )
         self.pose_model = (
             None if pose_params is None else
-            _load(BodyPoseModel(), pose_params, dtype, "openpose",
-                  self.device)
+            _load("openpose", pose_params, dtype, self.device,
+                  self.pose_precision)
         )
-        # The loaded weights, by reference (None where a model is absent).
+        # The loaded weights, by reference (None where a model is absent);
+        # under 'int8' the quantised ones.
         self.det_params = self.det_model.state_dict()
         self.rec_params = (None if self.rec_model is None
                            else self.rec_model.state_dict())

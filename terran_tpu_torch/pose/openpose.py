@@ -12,7 +12,9 @@ import torch
 
 from terran_tpu_torch.checkpoint import load_checkpoint_params
 from terran_tpu_torch.config import get_config
-from terran_tpu_torch.models.openpose import BodyPoseModel
+from terran_tpu_torch.models.openpose import (
+    BodyPoseModel, Int8BodyPoseModel, quantize_params,
+)
 from terran_tpu_torch.ops.pose_decode import (
     make_pose_decode, unpack_pose_outputs,
 )
@@ -35,8 +37,8 @@ class OpenPoseEstimator:
         """``params``: a :class:`BodyPoseModel` state dict (default: the
         converted checkpoint store). ``device``: where the model runs,
         the CUDA card unless the caller names another (``"cpu"``).
-        ``pose_precision``: 'native' (default: config ``pose_precision``);
-        'int8' raises until it is ported."""
+        ``pose_precision``: 'native' (default: config ``pose_precision``)
+        or 'int8', the int8 CPM quantised from the float32 ``params``."""
         cfg = get_config()
         self.pose_precision = check_precision(
             "pose_precision",
@@ -58,10 +60,15 @@ class OpenPoseEstimator:
             params = load_checkpoint_params(self.CHECKPOINT_CLASS)
         self.device = resolve_device(device)
         dtype = compute_dtype or default_policy().compute_dtype
-        params = cast_params_for_compute(
-            params, dtype, keep_f32=PARAMS_KEEP_F32["openpose"]
-        )
-        model = BodyPoseModel().to(dtype=dtype)
+        if self.pose_precision == "int8":
+            # Quantised from the float32 masters, before any cast.
+            params = quantize_params(params, dtype)
+            model = Int8BodyPoseModel(dtype)
+        else:
+            params = cast_params_for_compute(
+                params, dtype, keep_f32=PARAMS_KEEP_F32["openpose"]
+            )
+            model = BodyPoseModel().to(dtype=dtype)
         model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).eval()
         self.short_side = short_side

@@ -36,12 +36,10 @@ def not_ported(what, item):
 
 def check_precision(name, value):
     """``value`` of an ``embed_precision``/``pose_precision`` setting:
-    'native' passes; 'int8' raises until the int8 trunks are ported; any
-    other value raises ``ValueError``."""
+    'native' or 'int8' (the opt-in int8 trunk); any other value raises
+    ``ValueError``."""
     if value not in ("native", "int8"):
         raise ValueError(f"{name} must be 'native' or 'int8', got {value!r}")
-    if value == "int8":
-        raise not_ported(f"{name}='int8'", 5)
     return value
 
 

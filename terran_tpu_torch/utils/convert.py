@@ -290,8 +290,11 @@ def params_from_jax(params):
     - the ``conv`` level of a conv with a bias (``ConvBias``, OpenPose) is
       dropped, since this package's ``ConvBias`` is the conv itself; a
       ``ConvAffine``'s bias-free ``conv`` level stays;
+    - a quantised conv's ``kernel_q`` (int8 HWIO) and ``kernel_scale``
+      (the JAX package's ``quantize_params``) become ``weight_q`` (int8
+      OIHW) and ``weight_scale``, the int8 models' buffers;
     - every other leaf (affine scales and biases, PReLU alphas) carries
-      over under its path.
+      over under its path, as float32.
     """
     out = {}
 
@@ -302,6 +305,13 @@ def params_from_jax(params):
                 if key == "conv" and "bias" in value:
                     path = prefix
                 walk(value, path)
+            elif key == "kernel_q":
+                kernel = np.transpose(np.asarray(value, np.int8),
+                                      (3, 2, 0, 1))
+                out[f"{prefix}.weight_q"] = torch.from_numpy(
+                    np.ascontiguousarray(kernel))
+            elif key == "kernel_scale":
+                out[f"{prefix}.weight_scale"] = _tensor(value)
             elif key == "kernel":
                 kernel = _np(value)
                 if kernel.ndim == 4:

@@ -384,9 +384,25 @@ def test_warmup_runs_the_program_family(params):
     ({"embed_precision": "int8"}, "item 5"),
     ({"pose_precision": "int8"}, "item 5"),
 ])
-def test_unported_options_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        PerceptionPipeline(det_params={}, device="cpu", **kwargs)
+def test_unported_options_raise(params, kwargs, item):
+    """A mesh raises, naming its ROADMAP item; 'int8', once item 5, runs
+    the int8 trunk on weights quantised from the float32 masters."""
+    if "mesh" in kwargs:
+        with pytest.raises(NotImplementedError, match=item):
+            PerceptionPipeline(det_params={}, device="cpu", **kwargs)
+        return
+    pipe = make(params, **kwargs)
+    ((keyword, _),) = kwargs.items()
+    model, state, conv = (
+        (pipe.rec_model, pipe.rec_params, "initial.conv")
+        if keyword == "embed_precision"
+        else (pipe.pose_model, pipe.pose_params, "conv1_1"))
+    assert getattr(pipe, keyword) == "int8"
+    assert type(model).__name__.startswith("Int8")
+    assert state[f"{conv}.weight_q"].dtype == torch.int8
+    assert f"{conv}.weight" not in state
+    out = pipe.process_batch(frames_of(3))
+    assert out["embeddings"].shape == (2, 4, 512)
 
 
 def test_matmul_limbs_and_host_plan_parts_raise():

@@ -1,17 +1,20 @@
 """The task APIs' precision keywords: ``ArcFaceRecognizer(embed_precision=)``
 and ``OpenPoseEstimator(pose_precision=)``, as the JAX package's take them,
 with their ``TERRAN_TPU_EMBED_PRECISION``/``TERRAN_TPU_POSE_PRECISION``
-defaults. 'native' runs; 'int8' raises ``NotImplementedError`` naming its
-ROADMAP item until the int8 trunks are ported; anything else raises
+defaults. 'native' runs the float models; 'int8' runs the int8 ones on
+weights quantised from the float32 masters; anything else raises
 ``ValueError``, as the pipeline does.
 """
 
 import numpy as np
 import pytest
+import torch
 
 from terran_tpu_torch.config import get_config, load_config, set_config
 from terran_tpu_torch.face import Recognition
 from terran_tpu_torch.face.recognition import ArcFaceRecognizer
+from terran_tpu_torch.models.arcface import Int8FaceResNet100
+from terran_tpu_torch.models.openpose import Int8BodyPoseModel
 from terran_tpu_torch.pose import Estimation
 from terran_tpu_torch.pose.openpose import OpenPoseEstimator
 from terran_tpu_torch.utils.convert import convert_arcface, convert_openpose
@@ -24,6 +27,20 @@ APIS = {
     "pose": (OpenPoseEstimator, "pose_precision",
              "TERRAN_TPU_POSE_PRECISION"),
 }
+# A quantised conv of each model: int8 weights, float32 scales.
+QUANTISED = {"embed": ("initial.conv", Int8FaceResNet100),
+             "pose": ("conv1_1", Int8BodyPoseModel)}
+
+
+def assert_int8(api, model):
+    """``model`` (a task API's) runs the int8 trunk on quantised
+    weights."""
+    prefix, cls = QUANTISED[api]
+    assert isinstance(model.model, cls)
+    state = model.model.state_dict()
+    assert state[f"{prefix}.weight_q"].dtype == torch.int8
+    assert state[f"{prefix}.weight_scale"].dtype == torch.float32
+    assert f"{prefix}.weight" not in state
 
 
 @pytest.fixture(scope="module")
@@ -56,10 +73,12 @@ def test_native_keyword_runs(api, params):
 
 
 @pytest.mark.parametrize("api", sorted(APIS))
-def test_int8_keyword_names_its_roadmap_item(api):
+def test_int8_keyword_names_its_roadmap_item(api, params):
+    """'int8' was ROADMAP Queue 1 item 5: it now runs and quantises."""
     cls, keyword, _ = APIS[api]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        cls(params={}, device="cpu", **{keyword: "int8"})
+    model = cls(params=params[api], device="cpu", **{keyword: "int8"})
+    assert getattr(model, keyword) == "int8"
+    assert_int8(api, model)
 
 
 @pytest.mark.parametrize("api", sorted(APIS))
@@ -73,8 +92,9 @@ def test_unknown_precision_raises(api):
 def test_environment_sets_the_default(api, params, environment):
     cls, keyword, variable = APIS[api]
     environment(**{variable: "int8"})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cls(params={}, device="cpu")
+    model = cls(params=params[api], device="cpu")
+    assert getattr(model, keyword) == "int8"
+    assert_int8(api, model)
     # The keyword overrides the environment.
     model = cls(params=params[api], device="cpu", **{keyword: "native"})
     assert getattr(model, keyword) == "native"
@@ -85,10 +105,11 @@ def test_environment_sets_the_default(api, params, environment):
         cls(params={}, device="cpu")
 
 
-@pytest.mark.parametrize("task,keyword", [(Recognition, "embed_precision"),
-                                          (Estimation, "pose_precision")])
-def test_task_classes_pass_the_keyword(task, keyword):
-    """The generic task classes hand model keywords to the wrapper, which
-    raises before it reads the checkpoint store."""
-    with pytest.raises(NotImplementedError, match="item 5"):
-        task(device="cpu", **{keyword: "int8"})
+@pytest.mark.parametrize("task,api", [(Recognition, "embed"),
+                                      (Estimation, "pose")])
+def test_task_classes_pass_the_keyword(task, api, params):
+    """The generic task classes hand model keywords to the wrapper."""
+    _, keyword, _ = APIS[api]
+    instance = task(device="cpu", params=params[api], **{keyword: "int8"})
+    assert getattr(instance.model, keyword) == "int8"
+    assert_int8(api, instance.model)
