@@ -93,6 +93,18 @@ Phases (any failure raises, exits nonzero and prints no result line):
    pipeline with ``embed_precision='int8', pose_precision='int8'``
    (warmup, one batch, a dispatch under the sync check, 3 timed sweeps,
    each kernel exactly 2 launches a batch, the _int_mm calls a batch);
+   after the host plan, this slice's main path, scale-out over
+   torch.distributed (``scaleout_phase``): ``create_mesh()`` brings up a
+   world-1 NCCL group on cuda:0 over a loopback store; the pipeline at
+   bench.py's configuration under the mesh equals the pipeline without
+   one bit for bit on a batch, and both are timed over interleaved
+   sweeps (both kernels on every mesh batch); ``make_sharded_nms`` at
+   world 1 equals ``nms_fixed``; ``SpatialShardedDetector`` at world 1 on
+   a seeded 2160x3840 frame equals the detector's model on the frame
+   between zero halos; the frame's 4-slab layout replayed slab by slab
+   on the card in float32 (TF32 off, merged by ``nms_fixed`` there)
+   equals the same replay on the CPU; the group is destroyed before the
+   next phase;
 5. float32 with TF32 off: the fused path and the materialised path
    (``fused_peaks='off'``) give equal keypoints, and the card's forward
    agrees with the CPU's on a small input; the same for RetinaFace and
@@ -109,9 +121,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    one NMS suppression call (2: mask and sweep) with each one's device
    time at K=64, 256 and 1024;
 7. JSON lines describing the pipeline, its host plan, the streams, the
-   int8 trunks and their conv shapes, the tiled call, recognition
-   without landmarks and the kernels, then the card's line, then the
-   result line.
+   int8 trunks and their conv shapes, the tiled call, the scale-out
+   phase, recognition without landmarks and the kernels, then the card's
+   line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -160,6 +172,8 @@ STREAM_SWEEPS = 2
 TILED_FRAME = (2160, 3840)
 TILE = 1024
 TILE_OVERLAP = 256
+# Scale-out: the 4K frame's 4-slab layout replayed on one card.
+SCALEOUT_SLABS = 4
 # Whole-face crops for recognition without landmarks: upscaled and
 # downscaled, odd aspect ratios, a side of one pixel, a square.
 NO_LANDMARK_SHAPES = [(37, 51), (200, 160), (112, 112), (640, 480),
@@ -1194,6 +1208,351 @@ def pipeline_host_float32_phase(params, rng, dev, card):
     return {"embedding_err": err, "crop_values_differing": differing}
 
 
+def slab_replay(model, frame, n, halo, threshold, top_k, local_top_k,
+                nms_threshold, device):
+    """The spatial path's arithmetic for ``n`` slabs in one process, as
+    tests/test_spatial.py's oracle replays it: each extended slab sliced
+    by hand from the zero-padded frame (zeros past its edges), the model,
+    the anchor decode, ``slab_candidates`` as rank i, then one
+    ``nms_fixed`` over the slabs' candidates in slab order. Returns the
+    kept (boxes, landmarks, scores) as numpy, the merged overflow flag and
+    each slab's pre-selection overflow."""
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch.models.retinaface import decode_outputs
+    from terran_tpu_torch.ops.nms import nms_fixed
+    from terran_tpu_torch.parallel.spatial import (
+        GRID, ext_anchor_meta, slab_candidates, slab_layout,
+    )
+
+    h, w = frame.shape[:2]
+    slab_h, padded_h = slab_layout(h, n)
+    padded_w = -(-w // GRID) * GRID
+    halo = min(halo, slab_h)
+    padded = np.zeros((padded_h, padded_w, 3), np.uint8)
+    padded[:h, :w] = frame
+    anchors = torch.from_numpy(
+        ext_anchor_meta(slab_h, padded_w, halo)[0]).to(device)
+    cands = []
+    with torch.inference_mode():
+        for i in range(n):
+            start = i * slab_h
+            ext = np.zeros((slab_h + 2 * halo, padded_w, 3), np.uint8)
+            lo, hi = max(0, start - halo), min(padded_h,
+                                               start + slab_h + halo)
+            ext[lo - (start - halo):hi - (start - halo)] = padded[lo:hi]
+            x = torch.from_numpy(ext)[None].to(device)
+            scores, boxes, landmarks = decode_outputs(
+                model(x.to(model.compute_dtype)), anchors)
+            cands.append(slab_candidates(
+                scores[0], boxes[0], landmarks[0], device_index=i,
+                slab_h=slab_h, halo=halo, width=padded_w, valid_h=h,
+                valid_w=w, threshold=threshold, local_top_k=local_top_k))
+        kb, ks, keep, order, merged = nms_fixed(
+            torch.cat([c[0] for c in cands]),
+            torch.cat([c[2] for c in cands]), nms_threshold,
+            score_threshold=threshold, top_k=top_k)
+        kl = torch.cat([c[1] for c in cands])[order]
+        keep = keep.cpu().numpy()
+        return ((kb.cpu().numpy()[keep], kl.cpu().numpy()[keep],
+                 ks.cpu().numpy()[keep]), bool(merged),
+                [bool(c[3]) for c in cands])
+
+
+def faces_arrays(faces):
+    """(boxes, landmarks, scores) arrays of a task-API face list."""
+    import numpy as np
+
+    return (np.array([f["bbox"] for f in faces], np.float32).reshape(-1, 4),
+            np.array([f["landmarks"] for f in faces],
+                     np.float32).reshape(-1, 5, 2),
+            np.array([f["score"] for f in faces], np.float32))
+
+
+def kept_error(got, expected, label, coords_rtol=0.0):
+    """Max abs error of two kept (boxes, landmarks, scores) triples; the
+    counts must agree, scores within 1e-5 and coordinates within 1e-2
+    plus ``coords_rtol`` of their size (tests/test_spatial.py's)."""
+    import numpy as np
+
+    if len(got[2]) != len(expected[2]) or not len(got[2]):
+        raise AssertionError(f"{label}: {len(got[2])} faces kept against "
+                             f"{len(expected[2])}")
+    worst = 0.0
+    for name, g, e in zip(("boxes", "landmarks", "scores"), got, expected):
+        err = np.abs(g.astype(np.float64) - e)
+        tol = (1e-5 if name == "scores"
+               else 1e-2 + coords_rtol * np.abs(e.astype(np.float64)))
+        if not (err <= tol).all():
+            raise AssertionError(f"{label}: {name} differ by up to "
+                                 f"{float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def scaleout_phase(params, rf_params, batches, model_boxes, dev, card):
+    """Scale-out over torch.distributed on one card: ``create_mesh()``
+    brings up a world-1 NCCL group over a loopback store (the backend must
+    be nccl and the device cuda:0), and the group is destroyed at the end,
+    failure or not. In it:
+
+    - the pipeline at bench.py's configuration under the mesh against the
+      same pipeline without one: warmup each, one batch each with
+      deterministic cuDNN, every output equal; then PIPE_SWEEPS timed
+      ``process_stream`` sweeps of each, interleaved, the kernels' counts
+      set to 0 just before each mesh sweep and read just after (both
+      kernels on every batch);
+    - the int8 trunks under the 'host' plan with and without the mesh:
+      one batch each with deterministic cuDNN, every output equal, each
+      timed;
+    - ``make_sharded_nms`` at world 1 (local_top_k = every anchor) against
+      ``nms_fixed`` on the detector's decoded boxes of one 1080p frame:
+      boxes, scores, keep and overflow equal, ``order`` through the
+      pre-selection's permutation equal; both timed with CUDA events;
+    - ``SpatialShardedDetector`` at world 1 (halo 256, top_k 256, no
+      escalation, bf16) on one seeded 2160x3840 frame against
+      RetinaFaceDetector's model on the same frame between zero halos,
+      replayed by hand (tests/test_spatial.py:195's comparison), at
+      test_spatial.py's tolerances; timed;
+    - a 4-slab layout of that frame (slab 544, halo 256) replayed slab by
+      slab on the card and merged by ``nms_fixed`` there, in float32 with
+      TF32 off, against the same replay on the CPU: the same faces kept,
+      scores within 1e-5, coordinates within 1e-2 + 1e-4 of their size
+      (the float32 heads differ by summation order).
+
+    Returns the fields of the ``scaleout`` line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from terran_tpu_torch.face.detection import RetinaFaceDetector
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
+    from terran_tpu_torch.parallel import (
+        SpatialShardedDetector, create_mesh, slab_layout,
+    )
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+
+    if dist.is_initialized():
+        raise AssertionError("a process group exists before the scale-out "
+                             "phase")
+    mesh = create_mesh()
+    try:
+        if (mesh.backend, mesh.device, mesh.size) != (
+                "nccl", torch.device("cuda", 0), 1):
+            raise AssertionError(f"mesh: backend {mesh.backend}, device "
+                                 f"{mesh.device}, size {mesh.size}")
+        plain = PerceptionPipeline(**pipeline_kwargs(params))
+        meshed = PerceptionPipeline(**pipeline_kwargs(params, mesh=mesh))
+        for pipe in (plain, meshed):
+            pipe.warmup(BATCH, *FRAME)
+
+        def assert_same(got, expected, what):
+            for key in ("boxes", "landmarks", "scores", "mask",
+                        "det_overflow", "embeddings", "embeddings_mask",
+                        "pose_overflow"):
+                if not np.array_equal(got[key], expected[key]):
+                    raise AssertionError(f"{what}: {key} differs")
+            if ([[(p["keypoints"].tolist(), p["score"]) for p in f]
+                 for f in got["poses"]]
+                    != [[(p["keypoints"].tolist(), p["score"]) for p in f]
+                        for f in expected["poses"]]):
+                raise AssertionError(f"{what}: poses differ")
+
+        torch.backends.cudnn.deterministic = True
+        try:
+            expected = plain.process_batch(batches[0])
+            got = meshed.process_batch(batches[0])
+        finally:
+            torch.backends.cudnn.deterministic = False
+        assert_same(got, expected, "mesh vs no-mesh pipeline")
+        for pipe in (plain, meshed):  # ramp, as pipeline_phase does
+            for _ in pipe.process_stream(batches[:2], depth=PIPE_DEPTH):
+                pass
+
+        fps = {"mesh": [], "plain": []}
+        launches = {"fused_peaks": 0, "nms": 0}
+        for _ in range(PIPE_SWEEPS):
+            for name, pipe in (("plain", plain), ("mesh", meshed)):
+                if name == "mesh":
+                    fp.find_peaks_fused.launches = 0
+                    nms.suppress.launches = 0
+                start = time.perf_counter()
+                outs = list(pipe.process_stream(batches, depth=PIPE_DEPTH))
+                fps[name].append(BATCH * PIPE_BATCHES
+                                 / (time.perf_counter() - start))
+                if name == "mesh":
+                    launches["fused_peaks"] += fp.find_peaks_fused.launches
+                    launches["nms"] += 2 * nms.suppress.launches
+                for out in outs:
+                    check_pipeline_result(out, BATCH, PIPE_CONFIG)
+        swept = PIPE_SWEEPS * PIPE_BATCHES
+        for name, count in launches.items():
+            if count < 2 * swept:
+                raise AssertionError(f"the mesh pipeline launched {name}'s "
+                                     f"kernels {count} times over {swept} "
+                                     "batches")
+        median = {name: sorted(v)[len(v) // 2] for name, v in fps.items()}
+        log(f"scale-out ({card}): world-1 {mesh.backend} mesh on "
+            f"{mesh.device}; pipeline at {PIPE_CONFIG}, {PIPE_SWEEPS} "
+            f"interleaved sweeps of {PIPE_BATCHES} batches x {BATCH} x "
+            f"{FRAME[0]}x{FRAME[1]}: mesh frames/s "
+            + ", ".join(f"{f:.2f}" for f in fps["mesh"])
+            + f" (median {median['mesh']:.2f}) against no mesh "
+            + ", ".join(f"{f:.2f}" for f in fps["plain"])
+            + f" (median {median['plain']:.2f}); one batch equal bit for "
+            f"bit; kernel launches per batch under the mesh: fused_peaks "
+            f"{launches['fused_peaks'] / swept:g}, nms "
+            f"{launches['nms'] / swept:g}")
+        del plain, meshed
+
+        # The int8 trunks (one all-reduce of each conv's activation scale
+        # under the mesh) and the 'host' plan (the embed program on the
+        # main thread under the mesh), one batch each way, timed.
+        int8_host = {"transfer_plan": "host", "embed_precision": "int8",
+                     "pose_precision": "int8"}
+        int8_runs = {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name, extra in (("plain", {}), ("mesh", {"mesh": mesh})):
+                with PerceptionPipeline(**pipeline_kwargs(
+                        params, **int8_host, **extra)) as pipe:
+                    int8_runs[name] = timed_calls(
+                        lambda pipe=pipe: pipe.process_batch(batches[0]))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        assert_same(int8_runs["mesh"][0], int8_runs["plain"][0],
+                    "int8 'host'-plan pipeline, mesh vs no mesh")
+        int8_ms = {name: run[2] for name, run in int8_runs.items()}
+        log(f"scale-out ({card}): int8 trunks under the 'host' plan, one "
+            f"batch of {BATCH} equal bit for bit with and without the "
+            f"world-1 mesh; {int8_ms['mesh']:.2f} against "
+            f"{int8_ms['plain']:.2f} ms a batch (median of {TIMED_CALLS} "
+            f"process_batch calls, host clock)")
+        del int8_runs
+
+        # The sharded NMS at world 1 against nms_fixed.
+        boxes, scores = model_boxes[0][0], model_boxes[1][0]
+        anchors = scores.shape[0]
+        run = nms.make_sharded_nms(mesh, iou_threshold=0.4,
+                                   score_threshold=0.5, local_top_k=anchors,
+                                   top_k=256)
+        nms.suppress.launches = 0
+        sharded = run(boxes, scores)
+        nms_calls = nms.suppress.launches
+        direct = nms.nms_fixed(boxes, scores, 0.4, score_threshold=0.5,
+                               top_k=256)
+        perm = torch.sort(torch.where(scores >= 0.5, scores, float("-inf")),
+                          descending=True, stable=True)[1]
+        for name, g, e in (("boxes", sharded[0], direct[0]),
+                           ("scores", sharded[1], direct[1]),
+                           ("keep", sharded[2], direct[2]),
+                           ("overflow", sharded[4], direct[4]),
+                           ("order", perm[sharded[3]], direct[3])):
+            if not torch.equal(g, e):
+                raise AssertionError(f"make_sharded_nms at world 1 vs "
+                                     f"nms_fixed: {name} differs")
+        sharded_ms = time_ms(lambda: run(boxes, scores))
+        direct_ms = time_ms(lambda: nms.nms_fixed(
+            boxes, scores, 0.4, score_threshold=0.5, top_k=256))
+        log(f"make_sharded_nms at world 1 == nms_fixed on {anchors} decoded "
+            f"anchors (top_k 256, {int(direct[2].sum())} kept, overflow "
+            f"{bool(direct[4])}): {sharded_ms:.4f} ms against "
+            f"{direct_ms:.4f} ms a call ({card})")
+
+        # SpatialShardedDetector at world 1 on a 4K frame.
+        frame = np.random.default_rng(SEED + 6).integers(
+            0, 255, TILED_FRAME + (3,), dtype=np.uint8)
+        detector = RetinaFaceDetector(params=rf_params)
+        spatial = SpatialShardedDetector(detector, mesh=mesh, halo=256,
+                                         top_k=256, max_escalations=0)
+        nms.suppress.launches = 0
+        faces, warm_s, spatial_ms = timed_calls(lambda: spatial(frame, 0.5))
+        spatial_nms_calls = nms.suppress.launches
+        if spatial_nms_calls != 1 + TIMED_CALLS:
+            raise AssertionError(f"{spatial_nms_calls} NMS calls over "
+                                 f"{1 + TIMED_CALLS} spatial calls")
+        replayed, _, _ = slab_replay(
+            detector.model, frame, 1, spatial.halo, 0.5, 256, 256,
+            detector.nms_threshold, dev)
+        spatial_err = kept_error(faces_arrays(faces), replayed,
+                                 "spatial world 1 vs the detector's model")
+        log(f"SpatialShardedDetector at world 1 ({TILED_FRAME[0]}x"
+            f"{TILED_FRAME[1]}, halo 256, top_k 256, bf16): {len(faces)} "
+            f"faces, equal to the detector's model on the frame between "
+            f"zero halos (max abs error {spatial_err:.2e}); warm call "
+            f"{warm_s:.3f} s, {spatial_ms:.2f} ms a call (median of "
+            f"{TIMED_CALLS}, host clock); {spatial_nms_calls} NMS calls "
+            f"over {1 + TIMED_CALLS} calls ({card})")
+
+        # The 4-slab layout, replayed on the card and on the CPU.
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            replays, replay_ms = {}, []
+            for device in (dev, dev, "cpu"):  # the card's second call warm
+                det32 = RetinaFaceDetector(params=rf_params, device=device,
+                                           compute_dtype=torch.float32)
+                nms.suppress.launches = 0
+                start = time.perf_counter()
+                replays[device] = slab_replay(
+                    det32.model, frame, SCALEOUT_SLABS, 256, 0.5, 256, 256,
+                    det32.nms_threshold, device)
+                if device == dev:
+                    torch.cuda.synchronize()
+                    replay_ms.append(1e3 * (time.perf_counter() - start))
+                    replay_nms_calls = nms.suppress.launches
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved
+        (card_kept, card_merged, card_slabs) = replays[dev]
+        (cpu_kept, cpu_merged, cpu_slabs) = replays["cpu"]
+        if (card_merged, card_slabs) != (cpu_merged, cpu_slabs):
+            raise AssertionError("4-slab replay: overflow flags differ "
+                                 "between the card and the CPU")
+        replay_err = kept_error(card_kept, cpu_kept,
+                                "4-slab replay, card vs CPU", 1e-4)
+        if replay_nms_calls != 1:
+            raise AssertionError(f"4-slab replay: {replay_nms_calls} NMS "
+                                 "kernel calls on the card, expected 1")
+        log(f"4-slab replay of the {TILED_FRAME[0]}x{TILED_FRAME[1]} frame "
+            f"(slab {slab_layout(TILED_FRAME[0], SCALEOUT_SLABS)[0]}, halo "
+            f"256, float32, TF32 off): card == CPU, "
+            f"{len(card_kept[2])} faces kept, max abs error "
+            f"{replay_err:.2e}; per-slab overflow {card_slabs}, merged "
+            f"{card_merged}; {replay_ms[1]:.2f} ms on the card warm "
+            f"({replay_ms[0]:.2f} ms the first call, host clock), its merge "
+            f"NMS on the card ({card})")
+        return {"backend": mesh.backend, "device": str(mesh.device),
+                "world_size": mesh.size,
+                "pipeline_frames_per_s": median["mesh"],
+                "pipeline_frames_per_s_sweeps": fps["mesh"],
+                "no_mesh_frames_per_s": median["plain"],
+                "no_mesh_frames_per_s_sweeps": fps["plain"],
+                "ratio_to_no_mesh": median["mesh"] / median["plain"],
+                "launches": launches, "batches": swept,
+                "launches_per_batch": {k: v / swept
+                                       for k, v in launches.items()},
+                "int8_host_plan_ms_per_batch": int8_ms["mesh"],
+                "int8_host_plan_no_mesh_ms_per_batch": int8_ms["plain"],
+                "sharded_nms_ms": sharded_ms, "nms_fixed_ms": direct_ms,
+                "sharded_nms_calls": nms_calls,
+                "spatial_ms": spatial_ms, "spatial_faces": len(faces),
+                "spatial_nms_calls": spatial_nms_calls,
+                "spatial_calls": 1 + TIMED_CALLS,
+                "spatial_max_abs_err": spatial_err,
+                "replay_4_slab_ms": replay_ms[1],
+                "replay_4_slab_first_ms": replay_ms[0],
+                "replay_4_slab_faces": len(card_kept[2]),
+                "replay_4_slab_max_abs_err": replay_err,
+                "replay_4_slab_nms_calls": replay_nms_calls}
+    finally:
+        dist.destroy_process_group()
+
+
 def environment_phase():
     """The host libraries the slice's paths need on the card's machine:
     scipy (the tracker's assignment; an ImportError fails the run) and an
@@ -1740,8 +2099,9 @@ def int8_float32_phase(arc_params, pose_params, dev, card):
     launches = quant.quant_conv.launches
     cuda_path = quant.quant_conv_int32
     quant.quant_conv_int32 = (lambda x, weight_q, stride, padding,
-                              weight_mat=None: quant.quant_conv_int32_plain(
-                                  x, weight_q, stride, padding))
+                              weight_mat=None, group=None:
+                              quant.quant_conv_int32_plain(
+                                  x, weight_q, stride, padding, group))
     try:
         feats_plain, (paf_plain, heat_plain) = run()
     finally:
@@ -2153,6 +2513,10 @@ def main():
     pipe_host = pipeline_host_phase(pipe_params, batches, card, pipe)
     pipe_exact = pipeline_host_phase(pipe_params, batches, card, pipe,
                                      host_resize="exact")
+    # This slice's main path: the pipeline under a world-1 NCCL mesh,
+    # the sharded NMS and the spatially sharded detector on the card.
+    scaleout = scaleout_phase(pipe_params, rf_params, batches, model_boxes,
+                              dev, card)
     del batches
     assembly = assembly_phase(card)
     tiled = tiled_phase(rf_params, dev, card)
@@ -2316,6 +2680,7 @@ def main():
     }}))
     log(json.dumps({"int8_convs": int8_convs}))
     log(json.dumps({"tiled": dict(tiled, card=card)}))
+    log(json.dumps({"scaleout": dict(scaleout, card=card)}))
     log(json.dumps({"recognition_no_landmarks": dict(no_landmarks,
                                                      card=card)}))
     log(json.dumps({"kernels": [{
@@ -2352,6 +2717,9 @@ def main():
         "streams_launches_per_batch":
             streams["launches"]["fused_peaks"] / streams["batches"],
         "tiled_launches_per_call": tiled["peak_launches"][-1],
+        "scaleout_launches": scaleout["launches"]["fused_peaks"],
+        "scaleout_launches_per_batch":
+            scaleout["launches_per_batch"]["fused_peaks"],
         "library_ms": None,
         "card": card,
     }, {
@@ -2400,6 +2768,16 @@ def main():
         "streams_launches_per_batch":
             streams["launches"]["nms"] / streams["batches"],
         "tiled_launches_per_call": 2 * tiled["nms_calls"][-1],
+        "scaleout_launches": scaleout["launches"]["nms"],
+        "scaleout_launches_per_batch":
+            scaleout["launches_per_batch"]["nms"],
+        "scaleout_sharded_nms_launches": 2 * scaleout["sharded_nms_calls"],
+        "scaleout_spatial_launches": 2 * scaleout["spatial_nms_calls"],
+        "scaleout_spatial_calls": scaleout["spatial_calls"],
+        "scaleout_spatial_launches_per_call":
+            2 * scaleout["spatial_nms_calls"] / scaleout["spatial_calls"],
+        "scaleout_4_slab_replay_launches":
+            2 * scaleout["replay_4_slab_nms_calls"],
         "library_ms": None,
         "card": card,
     }]}))

@@ -31,6 +31,7 @@ Layout: activations are NHWC, as in the JAX package; weights are OIHW
 """
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -89,14 +90,21 @@ def conv_weight_matrix(weight_q):
     return mat.contiguous().t()
 
 
-def quantize_activation(x):
+def quantize_activation(x, group=None):
     """(``round(x / xs)`` clipped to +-127, ties to even, as int-valued
     float32, and the 0-d float32 scale ``xs = max(max|x| * float32(1 /
     127), 1e-12)``, as the jitted JAX program computes them). ``xs`` stays
     on ``x``'s device, since reading it on the host would wait for the
-    card, and ``x / xs`` is a true division by it."""
-    xs = torch.clamp(x.abs().amax().to(torch.float32) * QMAX_RECIPROCAL,
-                     min=SCALE_FLOOR)
+    card, and ``x / xs`` is a true division by it. With a process
+    ``group``, ``x`` is this rank's rows of a batch split over it, and
+    ``max|x|`` is all-reduced over the group: the whole batch's, as XLA
+    reduces a sharded tensor."""
+    max_abs = x.abs().amax().to(torch.float32)
+    if group is not None:
+        max_abs = max_abs.reshape(1)
+        dist.all_reduce(max_abs, op=dist.ReduceOp.MAX, group=group)
+        max_abs = max_abs.reshape(())
+    xs = torch.clamp(max_abs * QMAX_RECIPROCAL, min=SCALE_FLOOR)
     return torch.clamp(torch.round(x.to(torch.float32) / xs), -QMAX, QMAX), xs
 
 
@@ -160,37 +168,40 @@ def dequantize(acc, xs, weight_scale, out_dtype):
     return (acc * (xs * weight_scale)).to(out_dtype)
 
 
-def quant_conv_int32(x, weight_q, stride, padding, weight_mat=None):
+def quant_conv_int32(x, weight_q, stride, padding, weight_mat=None,
+                     group=None):
     """(int32 NHWC accumulator, 0-d float32 activation scale) of the int8
     conv of NHWC ``x``: on a CUDA tensor im2col + ``torch._int_mm``
     (``weight_mat``, built from ``weight_q`` when None); on a CPU tensor
-    the plain version. Any other device raises."""
+    the plain version. Any other device raises. ``group``: see
+    :func:`quantize_activation`."""
     if x.device.type == "cpu":
-        return quant_conv_int32_plain(x, weight_q, stride, padding)
+        return quant_conv_int32_plain(x, weight_q, stride, padding, group)
     if x.device.type != "cuda":
         raise ValueError(f"quant_conv runs on CUDA or the CPU, not "
                          f"{x.device}")
     if weight_mat is None:
         weight_mat = conv_weight_matrix(weight_q)
-    xq, xs = quantize_activation(x)
+    xq, xs = quantize_activation(x, group)
     acc = conv_int32_int_mm(xq, weight_mat, weight_q.shape[0],
                             weight_q.shape[-1], stride, padding)
     return acc, xs
 
 
-def quant_conv_int32_plain(x, weight_q, stride, padding):
+def quant_conv_int32_plain(x, weight_q, stride, padding, group=None):
     """:func:`quant_conv_int32`'s plain version, on any device: the conv
     of the int8 values in float64."""
-    xq, xs = quantize_activation(x)
+    xq, xs = quantize_activation(x, group)
     return conv_int32_plain(xq, weight_q, stride, padding), xs
 
 
 def quant_conv(x, weight_q, weight_scale, stride, padding, out_dtype,
-               weight_mat=None):
+               weight_mat=None, group=None):
     """int8 conv of NHWC ``x`` with a dynamic per-tensor activation scale,
     dequantised and cast to ``out_dtype`` (``models/quant.py::quant_conv``).
     ``quant_conv.launches`` counts its ``torch._int_mm`` calls."""
-    acc, xs = quant_conv_int32(x, weight_q, stride, padding, weight_mat)
+    acc, xs = quant_conv_int32(x, weight_q, stride, padding, weight_mat,
+                               group)
     return dequantize(acc, xs, weight_scale, out_dtype)
 
 
@@ -202,7 +213,8 @@ class QuantConv2d(nn.Module):
     ``weight_scale`` (float32 per output channel) are buffers, and the
     product's matrix is derived from them whenever they load. Build it
     and its model in the compute dtype: ``Module.to(dtype)`` would cast
-    the float32 scales too. Takes and returns NHWC."""
+    the float32 scales too. Takes and returns NHWC. ``group``: see
+    :func:`reduce_activation_scales`."""
 
     def __init__(self, in_channels, out_channels, kernel=3, stride=1,
                  padding=0):
@@ -214,6 +226,7 @@ class QuantConv2d(nn.Module):
         self.register_buffer("weight_mat", conv_weight_matrix(self.weight_q),
                              persistent=False)
         self.register_load_state_dict_post_hook(QuantConv2d._derive_matrix)
+        self.group = None
 
     @staticmethod
     def _derive_matrix(module, _incompatible_keys):
@@ -222,12 +235,24 @@ class QuantConv2d(nn.Module):
     def accumulate(self, x):
         """(int32 accumulator, activation scale): :func:`quant_conv_int32`."""
         return quant_conv_int32(x, self.weight_q, self.stride, self.padding,
-                                self.weight_mat)
+                                self.weight_mat, self.group)
 
     def forward(self, x, out_dtype):
         """:func:`quant_conv` of ``x``, cast to ``out_dtype``."""
         return quant_conv(x, self.weight_q, self.weight_scale, self.stride,
-                          self.padding, out_dtype, self.weight_mat)
+                          self.padding, out_dtype, self.weight_mat,
+                          self.group)
+
+
+def reduce_activation_scales(model, group):
+    """Make every int8 conv of ``model`` take its activation scale over
+    the rows of every rank of the process ``group`` (None: this process's
+    rows alone), so that a batch split over the group quantises as the
+    whole batch would. Each forward then makes one all-reduce a conv, and
+    every rank must run the model together."""
+    for module in model.modules():
+        if isinstance(module, QuantConv2d):
+            module.group = group
 
 
 def keep_float64_copies(module, *names):

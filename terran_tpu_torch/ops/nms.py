@@ -12,7 +12,8 @@ every pair in 64-candidate tiles (:func:`iou_mask` launches it alone;
 its plain version is :func:`iou_mask_plain`), then the greedy sweep over
 it in 64-candidate chunks; for a CPU tensor its plain version,
 :func:`suppress_plain`, which is the reference's ``fori_loop`` body
-written out.
+written out. :func:`make_sharded_nms` merges candidates pre-selected on
+the ranks of a ``parallel.mesh.Mesh`` and runs :func:`nms_fixed` on them.
 """
 
 import ctypes
@@ -205,6 +206,69 @@ def nms_fixed(boxes, scores, iou_threshold, score_threshold=0.0, top_k=256):
     keep = suppress(top_boxes, valid, iou_threshold)
     out = (top_boxes, top_scores, keep, order, overflow)
     return tuple(t[0] for t in out) if single else out
+
+
+def make_sharded_nms(mesh, axis_name="data", *, iou_threshold=0.4,
+                     score_threshold=0.5, local_top_k=128, top_k=256):
+    """NMS for one image whose anchors are split over the mesh's ranks.
+
+    Each rank pre-selects its local top-``local_top_k`` candidates from its
+    anchor shard (a stable descending sort, as ``jax.lax.top_k`` orders
+    ties), an all-gather in rank order assembles them, and every rank runs
+    :func:`nms_fixed` on the merged set, so that every rank returns the
+    same outputs.
+
+    Exact against single-device NMS whenever no more than ``local_top_k``
+    above-threshold candidates live on any one shard: greedy NMS only
+    keeps candidates that also survive the local pre-selection. The
+    returned ``overflow`` covers both failure modes: a shard dropping
+    above-threshold candidates (all-reduced over the ranks) and the merged
+    set exceeding ``top_k``.
+
+    Returns a function (boxes (A, 4), scores (A,)) -> the five outputs of
+    :func:`nms_fixed` for one image, with ``order`` indexing the gathered
+    arrays. Each rank takes its rows of global arrays (``A`` divisible by
+    the mesh size), or its own rows from a ``ShardedBatch``
+    (``parallel.mesh.global_batch_from_local``). Every rank calls it.
+    """
+    from terran_tpu_torch.parallel.mesh import (
+        ShardedBatch, all_gather_rows, all_reduce_max,
+    )
+
+    def local(values):
+        if isinstance(values, ShardedBatch):
+            return values.local
+        if len(values) % mesh.size:
+            raise ValueError(f"{len(values)} anchors do not split over "
+                             f"{mesh.size} ranks")
+        per = len(values) // mesh.size
+        values = values[mesh.rank * per:(mesh.rank + 1) * per]
+        if not isinstance(values, torch.Tensor):
+            values = torch.from_numpy(np.ascontiguousarray(values))
+        return values.to(mesh.device)
+
+    def run(boxes, scores):
+        boxes, scores = local(boxes), local(scores)
+        if len(scores) < local_top_k:
+            raise ValueError(f"local_top_k={local_top_k} exceeds the "
+                             f"{len(scores)} anchors of a shard")
+        above = scores >= score_threshold
+        masked = torch.where(above, scores, float("-inf"))
+        top_scores, idx = torch.sort(masked, descending=True, stable=True)
+        idx = idx[:local_top_k]
+        # One gather of (box, score) rows in rank order.
+        gathered = all_gather_rows(
+            torch.cat([boxes[idx], top_scores[:local_top_k, None]], dim=1),
+            mesh)
+        local_overflow = (above.sum() > local_top_k).to(torch.int32)
+        any_local_overflow = all_reduce_max(local_overflow, mesh) > 0
+        kb, ks, keep, order, merged_overflow = nms_fixed(
+            gathered[:, :4], gathered[:, 4], iou_threshold,
+            score_threshold=score_threshold, top_k=top_k,
+        )
+        return kb, ks, keep, order, merged_overflow | any_local_overflow
+
+    return run
 
 
 def nms_numpy_reference(boxes, scores, iou_threshold):

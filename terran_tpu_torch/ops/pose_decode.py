@@ -251,11 +251,19 @@ def normalize_images(images):
 
 
 def forward_and_find_peaks(model, images, keypoint_threshold, max_peaks,
-                           use_fused, factor=8):
+                           use_fused, factor=8, mesh=None):
     """Normalise + CPM forward + fixed-K peak finding. ``images`` are
     uint8 (N, H, W, 3) at the network input resolution, on the model's
     device. Returns (paf x1 float32 NHWC, coords, scores, valid,
-    overflow)."""
+    overflow).
+
+    ``mesh`` is the JAX function's keyword, whose Pallas kernel needs
+    ``shard_map`` to run per shard. Under ``torch.distributed`` each rank
+    calls this on its own rows, so the fused kernels already run per rank;
+    with a mesh, ``images`` must lie on its device."""
+    if mesh is not None and images.device != mesh.device:
+        raise ValueError(f"images on {images.device}, not on the mesh's "
+                         f"{mesh.device}")
     x = normalize_images(images)
     paf, heat = model(x.to(model.compute_dtype))
     paf = paf.to(torch.float32)

@@ -39,9 +39,20 @@ default) run FaceResNet100 and OpenPose with int8 convs
 (``models/quant.py``), quantised from the float32 weights before the
 other leaves are cast to the compute dtype.
 
-Not ported, each raising ``NotImplementedError`` that names its
-ROADMAP.md item: ``mesh`` (Queue 1 item 6) and ``limb_backend='matmul'``
-(a TPU cost reformulation of the gather form).
+With ``mesh`` (``parallel.mesh.create_mesh``: one process per card under
+``torch.distributed``), every rank calls the pipeline with the same global
+batch and gets the global result. A batch is padded to a multiple of the
+mesh size (``pad_batch_to_multiple``'s rule); each rank uploads and runs
+only its own rows, and each fixed-shape device output is all-gathered in
+rank order on the compute stream before its one host fetch. Every bucket
+and escalation choice reads those gathered global tables, the same bytes
+on every rank, so the ranks choose alike and gather alike shapes. The
+int8 trunks all-reduce each conv's activation scale over the mesh, so
+that a split batch quantises as the whole batch; every collective is
+issued from the calling thread, in one order on every rank.
+
+``limb_backend='matmul'`` (a TPU cost reformulation of the gather form)
+raises ``NotImplementedError``.
 The JAX class's windowed and grouped-slab embed warps, also TPU cost
 reformulations, give the full-frame warp's crops bit for bit; this port
 warps from the full frames, so ``pipeline_embed_windows`` is read and has
@@ -70,6 +81,7 @@ from terran_tpu_torch.models.openpose import (
 from terran_tpu_torch.models.openpose import (
     quantize_params as quantize_openpose,
 )
+from terran_tpu_torch.models.quant import reduce_activation_scales
 from terran_tpu_torch.models.retinaface import (
     RetinaFace, make_detect_fn, unpack_detections,
 )
@@ -87,10 +99,13 @@ from terran_tpu_torch.ops.warp import (
     alignment_matrices, alignment_matrices_torch, warp_affine_frames,
     warp_affine_u8_batch_cv2, warp_affine_u8_batch_numpy,
 )
+from terran_tpu_torch.parallel.mesh import (
+    all_gather_rows, own_rows, shard_params,
+)
 from terran_tpu_torch.pose.assembly import assemble_humans, get_keypoints
 from terran_tpu_torch.runtime import (
     PARAMS_KEEP_F32, cast_params_for_compute, check_precision,
-    default_policy, not_ported, resolve_device,
+    default_policy, resolve_device,
 )
 from terran_tpu_torch.utils.convert import as_state_dict
 
@@ -179,7 +194,10 @@ class PerceptionPipeline:
     Parameters default to the checkpoint store; pass explicit params for
     testing, as this package's state dicts or as the ``terran_tpu``
     pytrees the JAX class takes. ``device``: where the models run, the
-    CUDA card unless the caller names another (``"cpu"``).
+    CUDA card unless the caller names another (``"cpu"``). ``mesh``
+    (``parallel.mesh.Mesh``) turns on data-parallel execution over the
+    frame axis, on the mesh's device; every rank then makes the same
+    calls with the same global batches, since each call runs collectives.
     """
 
     def __init__(self, det_params=None, rec_params=None, pose_params=None,
@@ -195,9 +213,7 @@ class PerceptionPipeline:
         from terran_tpu_torch.config import get_config
 
         cfg = get_config()
-        if mesh is not None:
-            raise not_ported("a mesh (multi-card data parallelism)", 6)
-        self.mesh = None
+        self.mesh = mesh
         self.embed_precision = check_precision(
             "embed_precision",
             cfg.embed_precision if embed_precision is None
@@ -305,6 +321,11 @@ class PerceptionPipeline:
         self.upload_bytes = 0
         self._upload_bytes_lock = threading.Lock()
 
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # Tensors report their card's index: 'cuda' != 'cuda:0'.
@@ -340,6 +361,14 @@ class PerceptionPipeline:
             _load("openpose", pose_params, dtype, self.device,
                   self.pose_precision)
         )
+        if mesh is not None:
+            # Replicas hold the mesh's first rank's weights, and the int8
+            # trunks quantise over the whole batch.
+            for model in (self.det_model, self.rec_model, self.pose_model):
+                if model is not None:
+                    model.load_state_dict(
+                        shard_params(model.state_dict(), mesh))
+                    reduce_activation_scales(model, mesh.group)
         # The loaded weights, by reference (None where a model is absent);
         # under 'int8' the quantised ones.
         self.det_params = self.det_model.state_dict()
@@ -505,7 +534,7 @@ class PerceptionPipeline:
                        resize_bilinear_u8(frames_full, pose_h, pose_w))
         paf, coords, scores, valid, overflow = forward_and_find_peaks(
             self.pose_model, frames_pose, self.keypoint_threshold,
-            max_peaks, self.use_fused_peaks,
+            max_peaks, self.use_fused_peaks, mesh=self.mesh,
         )
         return paf, pack_peaks(coords, scores, valid, overflow), coords, \
             valid
@@ -559,6 +588,31 @@ class PerceptionPipeline:
         return cap
 
     # ------------------------------------------------------------------
+    # Mesh: this rank's rows, gathered results
+    # ------------------------------------------------------------------
+
+    def _rows(self, batch):
+        """This rank's rows of a global batch, padded as
+        ``pad_batch_to_multiple`` pads it; the batch itself without a
+        mesh."""
+        return batch if self.mesh is None else own_rows(batch, self.mesh)
+
+    def _global_rows(self, local_rows):
+        """The padded global batch size for ``local_rows`` rows a rank."""
+        return local_rows * (1 if self.mesh is None else self.mesh.size)
+
+    def _gathered(self, tensor):
+        """A device output over this rank's rows as the global batch's:
+        all-gathered in rank order on the current stream under a mesh."""
+        if self.mesh is None:
+            return tensor
+        return all_gather_rows(tensor, self.mesh)
+
+    def _fetch(self, tensor):
+        """The host copy of a device output's global rows, started now."""
+        return _Fetch(self._gathered(tensor))
+
+    # ------------------------------------------------------------------
     # Host orchestration
     # ------------------------------------------------------------------
 
@@ -571,7 +625,10 @@ class PerceptionPipeline:
         to ``max_peaks`` in adaptive mode), so that a stream meets no
         first-use cost. The 'host' plan also runs its two host resizes,
         and its embed program is the crops+mask embed at every bucket.
-        Returns the number of device programs run."""
+        Under a mesh every rank calls it: it runs this rank's rows of the
+        batch padded to the mesh size, and one gather brings up the
+        group's communicator. Returns the number of device programs
+        run."""
         if self.device.type == "cuda":
             from terran_tpu_torch.ops import fused_peaks, nms
             from terran_tpu_torch.utils.cuda_build import load_libraries
@@ -580,6 +637,8 @@ class PerceptionPipeline:
             fused_peaks._library()
             nms._library()
 
+        if self.mesh is not None:
+            batch = -(-batch // self.mesh.size)
         frames_shape = (batch, height, width, 3)
         hostprep = self.transfer_plan == "host"
         with_pose = self.with_pose and self.pose_model is not None
@@ -602,10 +661,12 @@ class PerceptionPipeline:
                 self._host_resize(zeros, pose_h, pose_w)
             frames = self.put_frames(np.zeros((batch, det_h, det_w, 3),
                                               np.uint8))
-            run(self._perception_fn(height, width, pre_resized=True), frames)
+            det = run(self._perception_fn(height, width, pre_resized=True),
+                      frames)
         else:
             frames = self.put_frames(np.zeros(frames_shape, np.uint8))
-            run(self._perception_fn(height, width), frames)
+            det = run(self._perception_fn(height, width), frames)
+        self._gathered(det["det_packed"])
         embeds = self.with_embeddings and self.rec_model is not None
         if embeds and self.embed_dispatch == "fused":
             run(self._embed_fn(),
@@ -721,12 +782,15 @@ class PerceptionPipeline:
 
     def _host_prep_resize(self, frames):
         """Host half of the 'host' plan's prep for one batch: the
-        detection and pose resizes. No device work: ``process_stream``
-        runs it on its own thread, so batch i+1's resizes overlap batch
-        i's uploads."""
+        detection and pose resizes, of this rank's rows under a mesh
+        (``n`` is the global batch's true count). No device work:
+        ``process_stream`` runs it on its own thread, so batch i+1's
+        resizes overlap batch i's uploads."""
         if isinstance(frames, torch.Tensor):
             frames = frames.cpu()
         frames = np.asarray(frames)
+        n = frames.shape[0]
+        frames = self._rows(frames)
         full_h, full_w = frames.shape[1:3]
         det_h, det_w, _ = resized_shape(full_h, full_w, self.det_short_side)
         det_host = self._host_resize(frames, det_h, det_w)
@@ -735,7 +799,7 @@ class PerceptionPipeline:
             pose_h, pose_w, _ = resized_shape(full_h, full_w,
                                               self.pose_short_side)
             pose_host = self._host_resize(frames, pose_h, pose_w)
-        return {"frames": frames, "det_host": det_host,
+        return {"frames": frames, "n": n, "det_host": det_host,
                 "pose_host": pose_host}
 
     def _host_prep_upload(self, prep):
@@ -769,7 +833,7 @@ class PerceptionPipeline:
         if "crops" in out:
             out["emb_packed"] = self._embed_fn()(
                 out.pop("crops"), out.pop("emb_mask_dev"))
-        return {key: _Fetch(value) for key, value in out.items()}
+        return {key: self._fetch(value) for key, value in out.items()}
 
     def process_batch(self, frames):
         """Run the full pipeline on an (N, H, W, 3) uint8 RGB batch.
@@ -786,6 +850,10 @@ class PerceptionPipeline:
 
         Returns (out dict of in-flight fetches, pose tuple or None, n,
         pose_scale).
+
+        ``n`` is the batch's true frame count; under a mesh the device
+        work covers this rank's rows of the padded batch, and the fetches
+        the gathered global rows.
 
         Under ``transfer_plan='host'`` the caller's host ``frames`` are
         read again, by the embed worker thread after this returns, to warp
@@ -806,10 +874,12 @@ class PerceptionPipeline:
             with stage("host_prep"):
                 prep = self._host_prep(frames)
         if prep is not None:
-            frames = prep["frames"]
-        elif not hasattr(frames, "shape"):
-            frames = np.asarray(frames)
-        n = frames.shape[0]
+            frames, n = prep["frames"], prep["n"]
+        else:
+            if not hasattr(frames, "shape"):
+                frames = np.asarray(frames)
+            n = frames.shape[0]
+            frames = self._rows(frames)
         full_h, full_w = frames.shape[1:3]
 
         if hostprep:
@@ -854,7 +924,7 @@ class PerceptionPipeline:
                     peaks, paf = self._pose_detect_fn(
                         full_h, full_w, max_peaks, pre_resized=hostprep,
                     )(pose_in)
-                    return _Fetch(peaks), paf
+                    return self._fetch(peaks), paf
 
                 with stage("pose_dispatch", items=n):
                     peaks_dev, paf_dev = repose(self.max_peaks)
@@ -862,7 +932,7 @@ class PerceptionPipeline:
             else:
                 with stage("pose_dispatch", items=n):
                     pose_out = tuple(
-                        _Fetch(v) for v in
+                        self._fetch(v) for v in
                         self._pose_fn(full_h, full_w)(frames_dev)
                     )
 
@@ -1021,7 +1091,8 @@ class PerceptionPipeline:
                                            frames_dev.shape[2], mp_used)
                     (coords, scores, valid, reg, accept,
                      pose_overflow) = unpack_pose_outputs(
-                        *(_Fetch(v).numpy() for v in decode(frames_dev)))
+                        *(self._fetch(v).numpy()
+                          for v in decode(frames_dev)))
             out["pose_overflow"] = pose_overflow[:n].any(axis=-1)
 
         if state["pose"] is not None:
@@ -1056,8 +1127,10 @@ class PerceptionPipeline:
 
         ``kb`` covers the busiest (image, part)'s valid-peak count (valid
         peaks occupy prefix slots); ``cap`` is the peak capacity of the
-        program that produced ``coords``. Returns (kb, in-flight fetch),
-        or (1, None) when the whole batch produced no peaks.
+        program that produced ``coords``; under a mesh ``coords`` and
+        ``valid`` are the global padded batch's, and this rank's rows of
+        the plan are uploaded. Returns (kb, in-flight fetch), or (1, None)
+        when the whole batch produced no peaks.
         """
         counts = valid.sum(axis=-1)
         busiest = int(counts.max()) if counts.size else 0
@@ -1071,8 +1144,9 @@ class PerceptionPipeline:
             ],
             axis=-1,
         )
-        limbs = self._limb_fn(kb, paf_dev.shape)(paf_dev, self._put_batch(cv))
-        return kb, _Fetch(limbs)
+        limbs = self._limb_fn(kb, paf_dev.shape)(
+            paf_dev, self._put_batch(self._rows(cv)))
+        return kb, self._fetch(limbs)
 
     def _plan_adaptive_embed(self, out, b):
         """Bucket selection, capacity escalation and host Umeyama for the
@@ -1111,13 +1185,14 @@ class PerceptionPipeline:
         """Plan and enqueue the bucketed warp+embed program over the
         resident full frames. Returns the in-flight fetch, or None when no
         faces were found (no program runs at all)."""
-        plan = self._plan_adaptive_embed(out, frames_dev.shape[0])
+        plan = self._plan_adaptive_embed(
+            out, self._global_rows(frames_dev.shape[0]))
         if plan is None:
             return None
         packed, k = plan
         emb = self._warp_embed_fn(k, frames_dev.shape)(
-            frames_dev, self._put_batch(packed))
-        return _Fetch(emb)
+            frames_dev, self._put_batch(self._rows(packed)))
+        return self._fetch(emb)
 
     @_device_work
     def _dispatch_adaptive_embed_host(self, out, frames, n, stage):
@@ -1127,12 +1202,18 @@ class PerceptionPipeline:
         link, into the crops+mask embed (:meth:`_embed_fn`). Runs on the
         embed worker thread, so it makes the compute stream current and
         enters inference mode itself (both are per thread). Returns the
-        in-flight fetch, or None when no faces were found."""
+        in-flight fetch, or None when no faces were found. Under a mesh
+        ``frames`` are this rank's rows, and it stops after the uploads
+        and returns the (crops, mask) on the card: the embed program
+        (whose int8 trunk all-reduces) and the gather run in
+        :meth:`_collect_adaptive_embed` on the main thread, so that every
+        rank issues its collectives in one order."""
         b = frames.shape[0]
-        plan = self._plan_adaptive_embed(out, b)
+        plan = self._plan_adaptive_embed(out, self._global_rows(b))
         if plan is None:
             return None
         packed, k = plan
+        packed = self._rows(packed)
         mask = packed[..., 6] > 0.5
         warp = self._host_warp_fn()
         with stage("embed_host_warp", items=int(mask.sum())):
@@ -1145,9 +1226,10 @@ class PerceptionPipeline:
                         frames[i], packed[i, js, :6].reshape(-1, 2, 3))
         with stage("embed_dispatch", items=n,
                    nbytes=crops.nbytes + mask.nbytes):
-            emb = self._embed_fn()(self._put_batch(crops),
-                                   self._put_batch(mask))
-            return _Fetch(emb)
+            inputs = (self._put_batch(crops), self._put_batch(mask))
+            if self.mesh is not None:
+                return inputs
+            return _Fetch(self._embed_fn()(*inputs))
 
     def _collect_adaptive_embed(self, plan, n):
         """Fetch the adaptive embed result and place it in the
@@ -1156,6 +1238,8 @@ class PerceptionPipeline:
         Under the 'host' plan ``plan`` is the embed worker's future."""
         if isinstance(plan, Future):
             plan = plan.result()
+        if isinstance(plan, tuple):  # a mesh's uploaded (crops, mask)
+            plan = self._fetch(self._embed_fn()(*plan))
         if plan is None:
             return (
                 np.zeros((n, self.max_faces, EMBEDDING_DIM), np.float32),
@@ -1235,7 +1319,8 @@ class PerceptionPipeline:
         batch *i*'s results download and its host stages run, batch *i+1*
         is computing and batch *i+2* is crossing the host->device link.
 
-        With ``prefetch``, uploads move to a background thread
+        With ``prefetch`` (off under a mesh, as in the JAX class), uploads
+        move to a background thread
         (``io.video.prefetch.threaded_device_put`` with :meth:`put_frames`,
         the ``h2d_thread`` stage). Under the 'host' plan two threads
         precede the dispatch loop: the host resizes
@@ -1251,7 +1336,7 @@ class PerceptionPipeline:
             depth = get_config().pipeline_depth
         depth = max(1, depth)
 
-        if prefetch:
+        if prefetch and self.mesh is None:
             from terran_tpu_torch.io.video.prefetch import (
                 threaded_device_put,
             )

@@ -25,15 +25,6 @@ def resolve_device(device=None):
     return default_device() if device is None else torch.device(device)
 
 
-def not_ported(what, item):
-    """The error for a part of ``terran_tpu`` that this package has not
-    ported yet, naming its ROADMAP.md Queue 1 item."""
-    return NotImplementedError(
-        f"{what} is not ported to terran_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1 item {item})"
-    )
-
-
 def check_precision(name, value):
     """``value`` of an ``embed_precision``/``pose_precision`` setting:
     'native' or 'int8' (the opt-in int8 trunk); any other value raises

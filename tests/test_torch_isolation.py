@@ -126,6 +126,23 @@ SCRIPT = textwrap.dedent(f"""
     assert tiled and all(f["landmarks"].shape == (5, 2) for f in tiled)
     whole = rec.call([images[0], images[0][:20, :40]])
     assert whole.shape == (2, 512), whole.shape
+
+    # Scale-out over torch.distributed: a CPU world of one.
+    import torch.distributed as dist
+    from terran_tpu_torch.ops.nms import make_sharded_nms
+    from terran_tpu_torch.parallel import (
+        SpatialShardedDetector, create_mesh,
+    )
+
+    mesh = create_mesh(devices="cpu")
+    spatial = SpatialShardedDetector(det, mesh=mesh, halo=32, top_k=16)(
+        images[0])
+    assert spatial and all(f["bbox"].shape == (4,) for f in spatial)
+    boxes = torch.tensor([[0.0, 0.0, 10.0, 10.0], [1.0, 1.0, 11.0, 11.0]])
+    kept = make_sharded_nms(mesh, local_top_k=2, top_k=2)(
+        boxes, torch.tensor([0.9, 0.8]))[2]
+    assert kept.tolist() == [True, False], kept
+    dist.destroy_process_group()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded

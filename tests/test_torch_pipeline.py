@@ -380,16 +380,29 @@ def test_warmup_runs_the_program_family(params):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"mesh": object()}, "item 6"),
+    ({"mesh": "a world of one"}, "item 6"),
     ({"embed_precision": "int8"}, "item 5"),
     ({"pose_precision": "int8"}, "item 5"),
 ])
 def test_unported_options_raise(params, kwargs, item):
-    """A mesh raises, naming its ROADMAP item; 'int8', once item 5, runs
-    the int8 trunk on weights quantised from the float32 masters."""
+    """The options of ROADMAP Queue 1 items 5 and 6, which once raised, now
+    run: a mesh (item 6) takes the mesh's device and gives the batch's
+    results; 'int8' (item 5) runs the int8 trunk on weights quantised from
+    the float32 masters."""
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match=item):
-            PerceptionPipeline(det_params={}, device="cpu", **kwargs)
+        import torch.distributed as dist
+
+        from terran_tpu_torch.parallel import create_mesh
+
+        assert not dist.is_initialized()
+        mesh = create_mesh(devices="cpu")
+        try:
+            pipe = make(params, mesh=mesh)
+            assert pipe.mesh is mesh and pipe.device == mesh.device
+            out = pipe.process_batch(frames_of(3))
+        finally:
+            dist.destroy_process_group()
+        assert out["embeddings"].shape == (2, 4, 512)
         return
     pipe = make(params, **kwargs)
     ((keyword, _),) = kwargs.items()
