@@ -8,8 +8,9 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises, exits nonzero and prints no result line):
 
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-   scipy's version (the tracker needs it: an ImportError fails the run)
-   and where ffmpeg is;
+   scipy's version (the tracker needs it: an ImportError fails the run),
+   where ffmpeg and feh are, and whether Pillow, pycairo, click, requests
+   and matplotlib import (recorded only);
 2. build the hand-written kernels with nvcc, one build per source, in
    parallel: terran_tpu_torch/csrc/fused_peaks.cu (the tile scan and the
    plane merge) and terran_tpu_torch/csrc/nms.cu (the IoU bitmask and the
@@ -82,6 +83,18 @@ Phases (any failure raises, exits nonzero and prints no result line):
    each kept face a tile's detection at its origin, timed;
    recognition without landmarks on 8 crops of assorted sizes: the
    card's resize + pad against the CPU's, unit (8, 512) embeddings;
+   the user's start from the store (``store_phase``): the three seeded
+   reference-format state dicts written as .pth files, then ``python3 -m
+   terran_tpu_torch.cli checkpoint convert`` of each into a fresh store
+   under build/, ``checkpoint list`` and ``info``, each in a process of
+   its own; ``Detection()``, ``Recognition()``, ``Estimation()`` and
+   ``PerceptionPipeline(**PIPE_CONFIG)`` built with no ``params=`` equal
+   their ``params=`` twins bit for bit, the kernels launched in each;
+   ``examples/torch_streams.py --synthetic 2 --frames 16 --batch-size 8``
+   as a process on the card (32 frames over 2 streams); ``vis_*`` where
+   Pillow or pycairo imports and ``open_image``/``resolve_images`` where
+   Pillow does, else the logged fact that they cannot run there;
+   ``checkpoint delete``, then ``info`` says NOT_DOWNLOADED;
    the opt-in int8 trunks (their product is ``torch._int_mm``, a library
    call, not a kernel of the repository): every distinct quantised conv
    of Int8FaceResNet100 and Int8BodyPoseModel at the pipeline's shapes
@@ -122,8 +135,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
    time at K=64, 256 and 1024;
 7. JSON lines describing the pipeline, its host plan, the streams, the
    int8 trunks and their conv shapes, the tiled call, the scale-out
-   phase, recognition without landmarks and the kernels, then the card's
-   line, then the result line.
+   phase, recognition without landmarks, the store phase and the kernels,
+   then the card's line, then the result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -178,6 +191,14 @@ SCALEOUT_SLABS = 4
 # downscaled, odd aspect ratios, a side of one pixel, a square.
 NO_LANDMARK_SHAPES = [(37, 51), (200, 160), (112, 112), (640, 480),
                       (90, 300), (1, 80), (150, 150), (1080, 1920)]
+# The store phase: a fresh checkpoint home and the reference-format .pth
+# files, under build/; the streams example's run.
+STORE_DIR = REPO / "build" / "store"
+STORE_IDS = {"retinaface": "b5d77fff", "arcface": "d206e4b0",
+             "openpose": "11a769ad"}
+STORE_STREAMS = 2
+STORE_STREAM_FRAMES = 16
+LEAF_LIBRARIES = ("PIL", "cairo", "click", "requests", "matplotlib")
 # float32 operations of one IoU test in csrc/nms.cu: 2 max, 2 min, 2
 # subtractions, 2 clamps, 1 product, 2 additions/subtractions, 1 division,
 # 1 compare.
@@ -1291,6 +1312,21 @@ def kept_error(got, expected, label, coords_rtol=0.0):
     return worst
 
 
+def assert_same_pipeline(got, expected, what):
+    """Two ``process_batch`` results equal, every output and pose."""
+    import numpy as np
+
+    for key in ("boxes", "landmarks", "scores", "mask", "det_overflow",
+                "embeddings", "embeddings_mask", "pose_overflow"):
+        if not np.array_equal(got[key], expected[key]):
+            raise AssertionError(f"{what}: {key} differs")
+    if ([[(p["keypoints"].tolist(), p["score"]) for p in f]
+         for f in got["poses"]]
+            != [[(p["keypoints"].tolist(), p["score"]) for p in f]
+                for f in expected["poses"]]):
+        raise AssertionError(f"{what}: poses differ")
+
+
 def scaleout_phase(params, rf_params, batches, model_boxes, dev, card):
     """Scale-out over torch.distributed on one card: ``create_mesh()``
     brings up a world-1 NCCL group over a loopback store (the backend must
@@ -1348,18 +1384,7 @@ def scaleout_phase(params, rf_params, batches, model_boxes, dev, card):
         for pipe in (plain, meshed):
             pipe.warmup(BATCH, *FRAME)
 
-        def assert_same(got, expected, what):
-            for key in ("boxes", "landmarks", "scores", "mask",
-                        "det_overflow", "embeddings", "embeddings_mask",
-                        "pose_overflow"):
-                if not np.array_equal(got[key], expected[key]):
-                    raise AssertionError(f"{what}: {key} differs")
-            if ([[(p["keypoints"].tolist(), p["score"]) for p in f]
-                 for f in got["poses"]]
-                    != [[(p["keypoints"].tolist(), p["score"]) for p in f]
-                        for f in expected["poses"]]):
-                raise AssertionError(f"{what}: poses differ")
-
+        assert_same = assert_same_pipeline
         torch.backends.cudnn.deterministic = True
         try:
             expected = plain.process_batch(batches[0])
@@ -1555,19 +1580,37 @@ def scaleout_phase(params, rf_params, batches, model_boxes, dev, card):
 
 def environment_phase():
     """The host libraries the slice's paths need on the card's machine:
-    scipy (the tracker's assignment; an ImportError fails the run) and an
+    scipy (the tracker's assignment; an ImportError fails the run), an
     ffmpeg binary (the video reader and writer; only recorded, the smoke
-    feeds synthetic streams)."""
+    feeds synthetic streams), and whether the leaf group's libraries
+    import (Pillow, pycairo, click, requests, matplotlib) and where feh is
+    (only recorded)."""
     import shutil
 
     import scipy
     from scipy.optimize import linear_sum_assignment  # noqa: F401
 
     env = {"scipy": scipy.__version__, "ffmpeg": shutil.which("ffmpeg"),
-           "ffprobe": shutil.which("ffprobe")}
+           "ffprobe": shutil.which("ffprobe"), "feh": shutil.which("feh")}
+    # The leaf group's libraries: recorded only.
+    for name in LEAF_LIBRARIES:
+        env[name] = importable(name)
     log(f"environment: scipy {env['scipy']}, ffmpeg {env['ffmpeg']}, "
-        f"ffprobe {env['ffprobe']}")
+        f"ffprobe {env['ffprobe']}, feh {env['feh']}; "
+        + ", ".join(f"{name} {env[name]}" for name in LEAF_LIBRARIES))
     return env
+
+
+def importable(name):
+    """The version of module ``name`` where it imports, "no" where it does
+    not."""
+    import importlib
+
+    try:
+        module = importlib.import_module(name)
+    except ImportError:
+        return "no"
+    return str(getattr(module, "__version__", "yes"))
 
 
 def stream_sources():
@@ -2272,6 +2315,277 @@ def pipeline_int8_phase(params, batches, card, native):
             "stages": summary}
 
 
+def cli_run(home, *args):
+    """``python3 -m terran_tpu_torch.cli checkpoint <args>`` in a process of
+    its own against the checkpoint home ``home``: (stdout, seconds). A
+    nonzero exit fails the run."""
+    env = dict(os.environ, TERRAN_TPU_HOME=str(home),
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, "-m", "terran_tpu_torch.cli", "checkpoint", *args],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - start
+    if result.returncode != 0:
+        raise AssertionError(f"checkpoint {' '.join(args)}: exit "
+                             f"{result.returncode}\n{result.stdout}"
+                             f"{result.stderr}")
+    return result.stdout, seconds
+
+
+def faces_key(faces_per_frame):
+    return [[(face["bbox"].tolist(), face["landmarks"].tolist(),
+              float(face["score"])) for face in faces]
+            for faces in faces_per_frame]
+
+
+def people_key(people_per_frame):
+    return [[(person["keypoints"].tolist(), float(person["score"]))
+             for person in people] for people in people_per_frame]
+
+
+def image_loading_check(frame):
+    """``open_image`` and ``resolve_images`` where Pillow imports: a PNG of
+    ``frame`` reads back equal, and a tree holding it twice (once nested)
+    and a file that is no image resolves to the two PNGs in one batch."""
+    import numpy as np
+    from PIL import Image
+
+    from terran_tpu_torch.io import open_image, resolve_images
+
+    root = STORE_DIR / "images"
+    (root / "nested").mkdir(parents=True)
+    for path in (root / "a.png", root / "nested" / "b.png"):
+        Image.fromarray(frame).save(path)
+    (root / "notes.txt").write_text("not an image")
+    if not np.array_equal(open_image(str(root / "a.png")), frame):
+        raise AssertionError("open_image: the PNG does not read back equal")
+    batches = list(resolve_images(root, batch_size=4))
+    if batches != [[root / "a.png", root / "nested" / "b.png"]]:
+        raise AssertionError(f"resolve_images: {batches}")
+    return "open_image and resolve_images ran with Pillow"
+
+
+def store_phase(raw, params, frames, batch, face_rng, card):
+    """The user's start on the card: the store, then the default entry
+    points, then both kernels.
+
+    - The seeded reference-format state dicts (``raw``, by family) are
+      written as .pth files under build/store/; then, each in a process of
+      its own against a fresh checkpoint home there, ``python3 -m
+      terran_tpu_torch.cli checkpoint convert <id> <pth>`` for the three,
+      ``checkpoint list`` and ``checkpoint info <id>``: each exits 0 and
+      names the store's file (seconds a convert logged).
+    - ``Detection()``, ``Recognition()`` and ``Estimation()`` with no
+      ``params=`` on ``frames``, and ``PerceptionPipeline(**PIPE_CONFIG)``
+      on ``batch``, bf16 on the card, each equal bit for bit (deterministic
+      cuDNN) to the same entry point given ``params=``; the NMS and peak
+      kernels launched in each that has them (counts set to 0 just before
+      each call and read just after).
+    - ``examples/torch_streams.py --synthetic 2 --frames 16 --batch-size
+      8`` in a process of its own on the card: exit 0, 32 frames over 2
+      streams.
+    - Where Pillow or pycairo imports, ``vis_faces``/``vis_poses`` on the
+      default entry points' outputs of one frame return its shape with
+      pixels changed, and where Pillow imports ``image_loading_check``
+      runs; elsewhere ``vis_faces`` raises ImportError, and the phase logs
+      that image loading and drawing cannot run there.
+    - ``checkpoint delete`` of RetinaFace, then ``checkpoint info`` says
+      NOT_DOWNLOADED. (Download is not driven: the machine has no
+      network.)
+
+    Returns the fields of the ``store`` line."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from terran_tpu_torch import vis
+    from terran_tpu_torch.face import Detection, Recognition
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+    from terran_tpu_torch.pose import Estimation
+
+    shutil.rmtree(STORE_DIR, ignore_errors=True)
+    STORE_DIR.mkdir(parents=True)
+    home = STORE_DIR / "home"
+    store = home / "checkpoints"
+    convert_s = {}
+    for family, checkpoint_id in STORE_IDS.items():
+        pth = STORE_DIR / f"{family}.pth"
+        torch.save({k: torch.as_tensor(np.ascontiguousarray(v))
+                    for k, v in raw[family].items()}, pth)
+        out, convert_s[family] = cli_run(home, "convert", checkpoint_id,
+                                         str(pth))
+        if f"Converted to {store / checkpoint_id}.npz." not in out:
+            raise AssertionError(f"convert {checkpoint_id}: {out!r}")
+        log(f"store: checkpoint convert {checkpoint_id} ({family}, "
+            f"{pth.stat().st_size} bytes of .pth) exit 0 in "
+            f"{convert_s[family]:.2f} s: {out.strip()}")
+    out, _ = cli_run(home, "list")
+    rows = {cid: [line for line in out.splitlines() if f"({cid})" in line]
+            for cid in STORE_IDS.values()}
+    if any(len(row) != 1 or not row[0].endswith("  DOWNLOADED")
+           for row in rows.values()):
+        raise AssertionError(f"checkpoint list: {out!r}")
+    for checkpoint_id in STORE_IDS.values():
+        out, _ = cli_run(home, "info", checkpoint_id)
+        if f"DOWNLOADED (at `{store / checkpoint_id}.npz`)" not in out:
+            raise AssertionError(f"checkpoint info {checkpoint_id}: {out!r}")
+    log(f"store: checkpoint list and info exit 0, each entry DOWNLOADED "
+        f"under {store}")
+
+    rf_params, arc_params, pose_params = params
+    launches = {}
+    default_ms = {}
+
+    def counted(name, call):
+        fp.find_peaks_fused.launches = 0
+        nms.suppress.launches = 0
+        start = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        default_ms[name] = 1e3 * (time.perf_counter() - start)
+        launches[name] = {"fused_peaks": fp.find_peaks_fused.launches,
+                          "nms": 2 * nms.suppress.launches}
+        return out
+
+    saved_home = os.environ["TERRAN_TPU_HOME"]
+    os.environ["TERRAN_TPU_HOME"] = str(home)
+    torch.backends.cudnn.deterministic = True
+    try:
+        explicit = Detection(params=rf_params)
+        default = Detection()
+        if (default.model.device.type != torch.device(DEVICE).type
+                or default.model.model.compute_dtype != torch.bfloat16):
+            raise AssertionError("Detection() must run bf16 on the card")
+        expected = explicit(frames)
+        faces = counted("Detection()", lambda: default(frames))
+        if faces_key(faces) != faces_key(expected):
+            raise AssertionError("Detection() differs from its params= twin")
+        del explicit, default
+
+        face_lists = synthetic_faces(face_rng, len(frames))
+        expected = Recognition(params=arc_params)(list(frames), face_lists)
+        default = Recognition()
+        if default.model.model.compute_dtype != torch.bfloat16:
+            raise AssertionError("Recognition() must run bf16")
+        feats = counted("Recognition()",
+                        lambda: default(list(frames), face_lists))
+        if not all(np.array_equal(a, b) for a, b in zip(feats, expected)):
+            raise AssertionError("Recognition() differs from its params= "
+                                 "twin")
+        del default
+
+        expected = Estimation(params=pose_params)(frames)
+        default = Estimation()
+        if default.model.model.compute_dtype != torch.bfloat16:
+            raise AssertionError("Estimation() must run bf16")
+        people = counted("Estimation()", lambda: default(frames))
+        if people_key(people) != people_key(expected):
+            raise AssertionError("Estimation() differs from its params= "
+                                 "twin")
+        del default
+
+        expected = PerceptionPipeline(
+            **pipeline_kwargs(params)).process_batch(batch)
+        default = PerceptionPipeline(**PIPE_CONFIG)
+        if default.device.type != torch.device(DEVICE).type:
+            raise AssertionError(f"PerceptionPipeline() on {default.device}")
+        got = counted("PerceptionPipeline()",
+                      lambda: default.process_batch(batch))
+        assert_same_pipeline(got, expected,
+                             "PerceptionPipeline() vs its params= twin")
+        del default
+    finally:
+        torch.backends.cudnn.deterministic = False
+        os.environ["TERRAN_TPU_HOME"] = saved_home
+    for name, kernels in (("Detection()", ("nms",)),
+                          ("Estimation()", ("fused_peaks",)),
+                          ("PerceptionPipeline()", ("nms", "fused_peaks"))):
+        for kernel in kernels:
+            if launches[name][kernel] < 2:
+                raise AssertionError(f"{name} did not launch the {kernel} "
+                                     "kernels")
+    for name in launches:
+        log(f"store: {name} from the store equals its params= twin bit for "
+            f"bit (bf16, {card}); one call {default_ms[name]:.2f} ms; "
+            f"launches {launches[name]}")
+
+    env = dict(os.environ, TERRAN_TPU_HOME=str(home),
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO), os.environ.get("PYTHONPATH", "")]))
+    args = ["--synthetic", str(STORE_STREAMS), "--frames",
+            str(STORE_STREAM_FRAMES), "--batch-size", str(BATCH)]
+    start = time.perf_counter()
+    result = subprocess.run(
+        [sys.executable, str(REPO / "examples" / "torch_streams.py"), *args],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    streams_s = time.perf_counter() - start
+    lines = result.stdout.splitlines()
+    total = STORE_STREAMS * STORE_STREAM_FRAMES
+    if (result.returncode != 0 or not lines
+            or not lines[0].startswith(f"{total} frames over "
+                                       f"{STORE_STREAMS} streams in ")
+            or lines[1:] != [f"  stream {i}: {STORE_STREAM_FRAMES} frames"
+                             for i in range(STORE_STREAMS)]):
+        raise AssertionError(f"examples/torch_streams.py {' '.join(args)}: "
+                             f"exit {result.returncode}\n{result.stdout}"
+                             f"{result.stderr[-4000:]}")
+    log(f"store: examples/torch_streams.py {' '.join(args)} exit 0 in "
+        f"{streams_s:.1f} s of process time: {lines[0]}")
+
+    leaf = {name: importable(name) for name in ("PIL", "cairo")}
+    if leaf["PIL"] != "no" or leaf["cairo"] != "no":
+        drawn = {"vis_faces": vis.vis_faces(frames[0], faces[0]),
+                 "vis_poses": vis.vis_poses(frames[0], people[0])}
+        visible = any(person["keypoints"][:, 2].any()
+                      for person in people[0])
+        for name, image in drawn.items():
+            if image.shape != frames[0].shape:
+                raise AssertionError(f"{name}: shape {image.shape}")
+            if (name == "vis_faces" or visible) \
+                    and not (image != frames[0]).any():
+                raise AssertionError(f"{name} drew nothing")
+        vis_status = f"ran with {vis.backend().__name__}"
+        if leaf["PIL"] != "no":
+            vis_status += "; " + image_loading_check(frames[0])
+        log(f"store: the leaf group on this machine: vis_faces and "
+            f"vis_poses {vis_status}")
+    else:
+        try:
+            vis.vis_faces(frames[0], faces[0])
+        except ImportError as exc:
+            vis_status = f"ImportError: {exc}"
+        else:
+            raise AssertionError("vis_faces ran without Pillow or pycairo")
+        log("store: Pillow and pycairo do not import on this machine, so "
+            "open_image, resolve_images, display_image, vis_faces and "
+            f"vis_poses cannot run here (vis_faces raised {vis_status})")
+
+    checkpoint_id = STORE_IDS["retinaface"]
+    out, _ = cli_run(home, "delete", checkpoint_id)
+    if f"Checkpoint `{checkpoint_id}` deleted successfully." not in out:
+        raise AssertionError(f"checkpoint delete: {out!r}")
+    out, _ = cli_run(home, "info", checkpoint_id)
+    if ("Status        NOT_DOWNLOADED" not in out
+            or (store / f"{checkpoint_id}.npz").exists()):
+        raise AssertionError(f"checkpoint info after delete: {out!r}")
+    log(f"store: checkpoint delete {checkpoint_id} exit 0; info then says "
+        "NOT_DOWNLOADED")
+    shutil.rmtree(STORE_DIR)
+    return {"convert_s": convert_s, "launches": launches,
+            "default_call_ms": default_ms,
+            "streams_example": {"args": args, "process_s": streams_s,
+                                "line": lines[0]},
+            "vis": vis_status,
+            "store_launches": {
+                kernel: sum(counts[kernel] for counts in launches.values())
+                for kernel in ("fused_peaks", "nms")}}
+
+
 def main():
     import torch
 
@@ -2319,7 +2633,8 @@ def main():
 
     # 3. Kernel vs plain version on the card.
     rng = np.random.default_rng(SEED)
-    state_dict = convert_openpose(random_openpose_state_dict(rng))
+    raw = {"openpose": random_openpose_state_dict(rng)}
+    state_dict = convert_openpose(raw["openpose"])
     frames = rng.integers(0, 256, (BATCH,) + FRAME + (3,), dtype=np.uint8)
 
     model_est = OpenPoseEstimator(params=state_dict)
@@ -2434,8 +2749,10 @@ def main():
     # The NMS kernel against its plain version, on the detector's own
     # boxes among others.
     face_rng = np.random.default_rng(SEED + 1)
-    rf_params = convert_retinaface(random_retinaface_state_dict(face_rng))
-    arc_params = convert_arcface(random_arcface_state_dict(face_rng))
+    raw["retinaface"] = random_retinaface_state_dict(face_rng)
+    raw["arcface"] = random_arcface_state_dict(face_rng)
+    rf_params = convert_retinaface(raw["retinaface"])
+    arc_params = convert_arcface(raw["arcface"])
     detector = RetinaFaceDetector(params=rf_params)
     nms_fields, nms_err, model_boxes = nms_phase(detector, frames, face_rng,
                                                  dev, card)
@@ -2494,10 +2811,16 @@ def main():
                                  card, {"pose": batch_ms,
                                         "recognition": rec_ms})
 
-    # The perception pipeline, this slice's main path: detect + embed +
-    # pose over batches, both kernels on every batch.
+    # This slice's main path: the store filled by the CLI, then the
+    # default-constructed entry points from it, the streams example, the
+    # leaf group where its libraries import, and delete.
     pipe_params = (rf_params, arc_params, state_dict)
     batches = pipeline_batches()
+    store = store_phase(raw, pipe_params, frames, batches[0],
+                        np.random.default_rng(SEED + 3), card)
+
+    # The perception pipeline: detect + embed + pose over batches, both
+    # kernels on every batch.
     pipe, warm_pipe = pipeline_phase(pipe_params, batches, card, {
         "pose": batch_ms, "detection": det_ms, "recognition": rec_ms})
     # This slice's main path: the same pipeline with both int8 trunks,
@@ -2683,6 +3006,7 @@ def main():
     log(json.dumps({"scaleout": dict(scaleout, card=card)}))
     log(json.dumps({"recognition_no_landmarks": dict(no_landmarks,
                                                      card=card)}))
+    log(json.dumps({"store": dict(store, environment=env, card=card)}))
     log(json.dumps({"kernels": [{
         "name": "fused_peaks",
         "route": "cuda",
@@ -2720,6 +3044,7 @@ def main():
         "scaleout_launches": scaleout["launches"]["fused_peaks"],
         "scaleout_launches_per_batch":
             scaleout["launches_per_batch"]["fused_peaks"],
+        "store_launches": store["store_launches"]["fused_peaks"],
         "library_ms": None,
         "card": card,
     }, {
@@ -2778,6 +3103,7 @@ def main():
             2 * scaleout["spatial_nms_calls"] / scaleout["spatial_calls"],
         "scaleout_4_slab_replay_launches":
             2 * scaleout["replay_4_slab_nms_calls"],
+        "store_launches": store["store_launches"]["nms"],
         "library_ms": None,
         "card": card,
     }]}))

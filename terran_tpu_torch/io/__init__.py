@@ -1,8 +1,8 @@
-"""Video I/O: the port of ``terran_tpu/io``'s video half (readers,
-writer, synthetic source, device feeding). Image loading
-(``open_image``, ``resolve_images``) waits with the PIL and requests leaf
-group in ROADMAP.md, Queue 1 item 4."""
+"""Image and video I/O: the port of ``terran_tpu/io`` (image loading,
+readers, writer, synthetic source, device feeding). Image loading needs
+Pillow, imported when ``open_image`` or ``resolve_images`` is called."""
 
+from terran_tpu_torch.io.image import open_image, resolve_images  # noqa
 from terran_tpu_torch.io.video import (  # noqa
     EndOfVideo, ParallelVideo, SyntheticVideo, Video, VideoClosed,
     VideoWriter, device_prefetch, fixed_shape_batches, open_video,

@@ -8,8 +8,10 @@ Two sources:
   inference BatchNorm becomes a per-channel (scale, bias) affine, the
   RGB->BGR input flip goes into the first conv's input channels, and
   ArcFace's head BN1d goes into its linear layer;
-- the converted store that ``terran_tpu`` writes (``<id>.npz``, a flattened
-  JAX pytree with HWIO kernels), through :func:`params_from_jax`.
+- the converted store that both packages read and write (``<id>.npz``, a
+  flattened JAX pytree with HWIO kernels), through :func:`params_from_jax`
+  and its inverse :func:`params_to_jax`; :func:`convert_torch_checkpoint`
+  writes a reference ``.pth`` into it as ``terran_tpu``'s converter does.
 
 Conversion is strict: unmapped keys raise, so a registry or architecture
 drift is caught at load time.
@@ -330,6 +332,50 @@ def params_from_jax(params):
     return out
 
 
+# Families whose biased convs are ``ConvBias`` modules in the JAX models,
+# which nest their ``nn.Conv`` as ``conv`` (RetinaFace's heads are bare
+# ``nn.Conv`` layers).
+CONV_BIAS_FAMILIES = ("openpose",)
+
+
+def params_to_jax(state_dict, model_key):
+    """This package's state dict -> the ``terran_tpu`` params pytree of the
+    ``model_key`` family (numpy float32 leaves), the inverse of
+    :func:`params_from_jax`:
+
+    - ``weight`` leaves become ``kernel``: OIHW conv weights HWIO (a
+      depthwise ``(C, 1, kh, kw)`` weight ``(kh, kw, 1, C)``), ``(O, I)``
+      Dense weights ``(I, O)``;
+    - a ``ConvBias`` (OpenPose's convs) gets its ``conv`` level back;
+    - the '.'-joined keys become nested dicts.
+
+    The transposes are views of the arrays, as the JAX converters return
+    them, so :func:`save_params` writes the bytes that they write.
+    """
+    if model_key not in CONVERTERS:
+        raise ValueError(f"unknown model family {model_key!r}")
+    tree = {}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        array = _np(value)
+        if leaf == "weight":
+            if array.ndim == 4:
+                array = np.transpose(array, (2, 3, 1, 0))
+            elif array.ndim == 2:
+                array = array.T
+            else:
+                raise ValueError(f"{key}: unexpected weight shape "
+                                 f"{array.shape}")
+            leaf = "kernel"
+        if model_key in CONV_BIAS_FAMILIES and leaf in ("kernel", "bias"):
+            path.append("conv")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = array
+    return tree
+
+
 def as_state_dict(params):
     """This package's state dict from either form a caller holds: a state
     dict ('.'-joined keys) passes through; a ``terran_tpu`` params pytree
@@ -366,6 +412,27 @@ def unflatten_tree(flat):
     return tree
 
 
+def save_params(path, params):
+    np.savez(path, **flatten_tree(params))
+
+
 def load_params(path):
     with np.load(path) as data:
         return unflatten_tree({k: data[k] for k in data.files})
+
+
+CONVERTERS = {
+    "retinaface": convert_retinaface,
+    "arcface": convert_arcface,
+    "openpose": convert_openpose,
+}
+
+
+def convert_torch_checkpoint(model_key, pth_path, out_path):
+    """Convert a reference ``.pth`` file into the store's ``.npz`` format
+    (the JAX package's pytree: HWIO kernels, '/'-joined keys), so that both
+    packages read the file. Returns this package's state dict."""
+    state_dict = torch.load(pth_path, map_location="cpu", weights_only=True)
+    converted = CONVERTERS[model_key](state_dict)
+    save_params(out_path, params_to_jax(converted, model_key))
+    return converted

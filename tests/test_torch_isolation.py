@@ -10,7 +10,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 BLOCKED = ("jax", "jaxlib", "flax", "terran_tpu", "cv2", "PIL", "click",
-           "requests")
+           "requests", "cairo", "matplotlib")
 
 SCRIPT = textwrap.dedent(f"""
     import importlib.abc
@@ -143,6 +143,23 @@ SCRIPT = textwrap.dedent(f"""
         boxes, torch.tensor([0.9, 0.8]))[2]
     assert kept.tolist() == [True, False], kept
     dist.destroy_process_group()
+
+    # The leaf group imports without Pillow, pycairo or matplotlib; the
+    # checkpoint commands run; drawing and image loading raise.
+    import terran_tpu_torch.io.image
+    import terran_tpu_torch.vis
+    from terran_tpu_torch import cli
+
+    assert cli.main(["checkpoint", "list"]) == 0
+    for call in (lambda: terran_tpu_torch.vis_faces(images[0], []),
+                 lambda: terran_tpu_torch.vis_poses(images[0], []),
+                 lambda: terran_tpu_torch.open_image("x.png")):
+        try:
+            call()
+        except ImportError as exc:
+            print("leaf raised:", exc)
+        else:
+            raise SystemExit("a leaf function ran without its library")
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
@@ -162,14 +179,25 @@ def test_port_runs_without_jax_or_host_libraries():
     )
     assert result.returncode == 0, result.stdout + result.stderr
     assert "default_device raised" in result.stdout
+    assert "RetinaFace (b5d77fff)" in result.stdout
+    assert result.stdout.count("leaf raised:") == 3
+    assert "need Pillow or pycairo" in result.stdout
     assert result.stdout.strip().splitlines()[-1].startswith("ok")
 
 
-# The 'host' plan's OpenCV forms import cv2 when they are called, and
-# nothing else names a blocked module: (path, function) of each.
-LAZY_CV2 = {
-    ("terran_tpu_torch/ops/resize.py", "resize_bilinear_u8_cv2"),
-    ("terran_tpu_torch/ops/warp.py", "warp_affine_u8_batch_cv2"),
+# The only imports of a blocked module in the package, each where it is
+# allowed: (path, enclosing function or None for module level, module).
+# cv2 in the 'host' plan's OpenCV forms; Pillow, pycairo and matplotlib in
+# the leaf group's image loading and drawing.
+ALLOWED = {
+    ("terran_tpu_torch/ops/resize.py", "resize_bilinear_u8_cv2", "cv2"),
+    ("terran_tpu_torch/ops/warp.py", "warp_affine_u8_batch_cv2", "cv2"),
+    ("terran_tpu_torch/io/image.py", "open_image", "PIL"),
+    ("terran_tpu_torch/io/image.py", "resolve_images", "PIL"),
+    ("terran_tpu_torch/vis/__init__.py", "display_image", "PIL"),
+    ("terran_tpu_torch/vis/__init__.py", "display_image", "matplotlib"),
+    ("terran_tpu_torch/vis/pillow.py", None, "PIL"),
+    ("terran_tpu_torch/vis/cairo.py", None, "cairo"),
 }
 
 
@@ -191,35 +219,28 @@ def imports(node, function=None):
 
 def test_sources_import_nothing_blocked():
     """No module of the package names a blocked module, lazy imports
-    inside functions included, except the two lazy cv2 imports of
-    LAZY_CV2."""
+    inside functions included, except at the places ALLOWED lists, each
+    of which is used."""
     import ast
 
     sources = sorted((REPO / "terran_tpu_torch").rglob("*.py"))
     assert sources
-    lazy_cv2 = set()
+    used = set()
     for path in sources:
         rel = path.relative_to(REPO).as_posix()
         for function, name in imports(ast.parse(path.read_text())):
-            if name == "cv2" and (rel, function) in LAZY_CV2:
-                lazy_cv2.add((rel, function))
+            place = (rel, function, name.split(".")[0])
+            if place in ALLOWED:
+                used.add(place)
                 continue
             assert name.split(".")[0] not in BLOCKED, (rel, function, name)
-    assert lazy_cv2 == LAZY_CV2
+    assert used == ALLOWED
 
 
-# The JAX package's public names that wait for the leaf group of
-# ROADMAP.md Queue 1 item 4 (PIL, requests, cairo).
-NOT_PORTED = {"open_image", "resolve_images", "display_image", "vis_faces",
-              "vis_poses"}
-
-
-def test_public_names_resolve_and_only_the_leaf_group_is_missing():
+def test_public_names_equal_the_jax_packages():
     import terran_tpu
     import terran_tpu_torch
 
     for name in terran_tpu_torch.__all__:
         assert getattr(terran_tpu_torch, name) is not None, name
-    assert set(terran_tpu.__all__) - set(terran_tpu_torch.__all__) \
-        == NOT_PORTED
-    assert set(terran_tpu_torch.__all__) <= set(terran_tpu.__all__)
+    assert set(terran_tpu_torch.__all__) == set(terran_tpu.__all__)

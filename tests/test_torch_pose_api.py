@@ -146,10 +146,38 @@ def test_estimation_loads_the_converted_store(state_dict, images,
     assert_same_people(task(images), jax_outputs)
 
 
-def test_missing_checkpoint_raises(tmp_path, monkeypatch):
-    monkeypatch.setenv("TERRAN_TPU_HOME", str(tmp_path))
-    with pytest.raises(FileNotFoundError, match="11a769ad"):
+def test_missing_checkpoint_raises(state_dict, tmp_path, monkeypatch):
+    """A checkpoint missing from the store downloads on first use (here
+    from a server on 127.0.0.1) and is converted into it; offline, the
+    download raises after 3 tries, naming the URL."""
+    from urllib.error import URLError
+
+    from terran_tpu_torch import checkpoint as ckpt
+    from torch_port_fixtures import LocalServer, refused_url, with_url
+
+    monkeypatch.setenv("TERRAN_TPU_HOME", str(tmp_path / "home"))
+    sleeps = []
+    monkeypatch.setattr("time.sleep", sleeps.append)
+    pth = tmp_path / "openpose.pth"
+    torch.save({k: torch.as_tensor(np.ascontiguousarray(v))
+                for k, v in state_dict.items()}, pth)
+    with LocalServer({"/op.pth": [(200, pth.read_bytes())]}) as server:
+        with_url(monkeypatch, ckpt, "11a769ad", server.url("/op.pth"))
+        loaded = load_checkpoint_params(OpenPoseEstimator.CHECKPOINT_CLASS)
+        assert len(server.requests) == 1
+    direct = convert_openpose(state_dict)
+    assert loaded.keys() == direct.keys()
+    for key in direct:
+        assert torch.equal(loaded[key], direct[key]), key
+    assert (tmp_path / "home" / "checkpoints" / "11a769ad.npz").exists()
+
+    monkeypatch.setenv("TERRAN_TPU_HOME", str(tmp_path / "offline"))
+    url = refused_url("/op.pth")
+    with_url(monkeypatch, ckpt, "11a769ad", url)
+    with pytest.raises(URLError) as info:
         load_checkpoint_params(OpenPoseEstimator.CHECKPOINT_CLASS)
+    assert any(url in note for note in info.value.__notes__)
+    assert sleeps == [1.0, 2.0]
 
 
 def test_keypoint_enum_order():
