@@ -132,11 +132,20 @@ Phases (any failure raises, exits nonzero and prints no result line):
 6. ``torch.profiler``: the CUDA kernels of one peak-scan call (at most 2),
    the kernels' device time at K=16, 32 and 128, and the CUDA kernels of
    one NMS suppression call (2: mask and sweep) with each one's device
-   time at K=64, 256 and 1024;
+   time at K=64, 256 and 1024; then, last, the package's runtime and
+   tracing names (``observability_phase``): ``platform()`` is 'gpu' and
+   ``available_devices()`` the visible cards, a float32
+   ``set_default_policy`` reaches a ``Detection`` built with no
+   ``compute_dtype``, and ``start_trace``/``stop_trace`` around 2 batches
+   of a warm pipeline at bench.py's configuration, each inside
+   ``trace("pipeline_batch")``, write a ``*.pt.trace.json`` that must hold
+   the region and the four kernels (scan, merge, mask, sweep); the global
+   timer counts 2 regions and a second ``start_trace`` raises;
 7. JSON lines describing the pipeline, its host plan, the streams, the
    int8 trunks and their conv shapes, the tiled call, the scale-out
-   phase, recognition without landmarks, the store phase and the kernels,
-   then the card's line, then the result line.
+   phase, recognition without landmarks, the store phase, the
+   observability phase and the kernels, then the card's line, then the
+   result line.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -199,6 +208,9 @@ STORE_IDS = {"retinaface": "b5d77fff", "arcface": "d206e4b0",
 STORE_STREAMS = 2
 STORE_STREAM_FRAMES = 16
 LEAF_LIBRARIES = ("PIL", "cairo", "click", "requests", "matplotlib")
+TRACE_DIR = REPO / "build" / "observability"
+TRACED_BATCHES = 2
+TRACE_KERNELS = ("scan_kernel", "merge_kernel", "mask_kernel", "sweep_kernel")
 # float32 operations of one IoU test in csrc/nms.cu: 2 max, 2 min, 2
 # subtractions, 2 clamps, 1 product, 2 additions/subtractions, 1 division,
 # 1 compare.
@@ -2586,6 +2598,147 @@ def store_phase(raw, params, frames, batch, face_rng, card):
                 for kernel in ("fused_peaks", "nms")}}
 
 
+def observability_phase(params, batches, card):
+    """The package's runtime and tracing names on the card, after every
+    timed phase (the profiler slows later launches in its process):
+    ``platform()`` and ``available_devices()``; a float32 default policy
+    reaching a ``Detection`` built with no ``compute_dtype``; then
+    ``start_trace``, TRACED_BATCHES batches of a warm pipeline at
+    bench.py's configuration each inside ``trace("pipeline_batch")``,
+    ``stop_trace``. The written ``*.pt.trace.json`` must hold the region
+    and each of the four kernels, and the global timer must count the
+    region once a batch. A second ``start_trace`` while one runs must
+    raise."""
+    import shutil
+
+    import torch
+
+    from terran_tpu_torch.face import Detection
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+    from terran_tpu_torch.runtime import (
+        Policy, available_devices, default_policy, platform,
+        set_default_policy,
+    )
+    from terran_tpu_torch.utils.profiling import (
+        global_timer, start_trace, stop_trace, trace,
+    )
+
+    if platform() != "gpu":
+        raise AssertionError(f"platform() is {platform()!r}, not 'gpu'")
+    devices = available_devices()
+    if devices != [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]:
+        raise AssertionError(f"available_devices() is {devices}")
+
+    saved = default_policy()
+    set_default_policy(Policy(compute_dtype=torch.float32))
+    detector = Detection(params=params[0])
+    set_default_policy(saved)
+    weights = {p.dtype for p in detector.model.model.parameters()}
+    if weights != {torch.float32}:
+        raise AssertionError(f"a float32 default policy built {weights} "
+                             "weights")
+    del detector
+
+    pipe = PerceptionPipeline(**pipeline_kwargs(params))
+    pipe.warmup(BATCH, *FRAME)
+    for batch in batches:
+        check_pipeline_result(pipe.process_batch(batch), BATCH, PIPE_CONFIG)
+    torch.cuda.synchronize()
+    untraced_ms = []
+    for batch in batches:
+        start = time.perf_counter()
+        pipe.process_batch(batch)
+        torch.cuda.synchronize()
+        untraced_ms.append(1e3 * (time.perf_counter() - start))
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    timer = global_timer()
+    counted = timer.counts.get("pipeline_batch", 0)
+    timed = timer.times.get("pipeline_batch", 0.0)
+    fp.find_peaks_fused.launches = 0
+    nms.suppress.launches = 0
+    traced_ms = []
+    start_trace(TRACE_DIR)
+    for batch in batches:
+        start = time.perf_counter()
+        with trace("pipeline_batch"):
+            out = pipe.process_batch(batch)
+            torch.cuda.synchronize()
+        traced_ms.append(1e3 * (time.perf_counter() - start))
+        check_pipeline_result(out, BATCH, PIPE_CONFIG)
+    try:
+        start_trace(TRACE_DIR / "second")
+    except RuntimeError as exc:
+        double_start = str(exc)
+    else:
+        raise AssertionError("a second start_trace did not raise")
+    stop_trace()
+    launches = {"fused_peaks": fp.find_peaks_fused.launches,
+                "nms": 2 * nms.suppress.launches}
+    if launches != dict.fromkeys(launches, 2 * len(batches)):
+        raise AssertionError(f"the traced batches launched {launches}, "
+                             "expected 2 of each kernel a batch")
+    regions = timer.counts["pipeline_batch"] - counted
+    region_ms = 1e3 * (timer.times["pipeline_batch"] - timed)
+    if regions != len(batches):
+        raise AssertionError(f"the global timer counted {regions} regions "
+                             f"over {len(batches)} traced batches")
+
+    (path,) = TRACE_DIR.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    annotated = sum(1 for e in events if e.get("name") == "pipeline_batch"
+                    and e.get("cat") == "user_annotation")
+    kernels = {name: {"events": 0, "device_ms": 0.0} for name in TRACE_KERNELS}
+    device_events, device_ms = 0, 0.0
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        device_events += 1
+        device_ms += e.get("dur", 0) / 1e3
+        # "(anonymous namespace)::scan_kernel(float const*, ...)"
+        name = re.search(r"(\w+)\(", e.get("name", ""))
+        name = name.group(1) if name else e.get("name")
+        if name in kernels:
+            kernels[name]["events"] += 1
+            kernels[name]["device_ms"] += e.get("dur", 0) / 1e3
+    missing = [name for name, k in kernels.items() if not k["events"]]
+    if annotated < 1 or missing:
+        raise AssertionError(f"the trace {path.name} holds "
+                             f"{annotated} pipeline_batch regions and no "
+                             f"event of {missing}")
+    result = {
+        "platform": platform(), "available_devices": [str(d) for d in devices],
+        "float32_policy_weights": sorted(str(w) for w in weights),
+        "trace_file": path.name, "trace_file_bytes": path.stat().st_size,
+        "trace_events": len(events), "kernel_events": device_events,
+        "kernel_device_ms": device_ms,
+        "region_events": annotated, "kernels": kernels,
+        "traced_batches": len(batches),
+        "region_host_ms_global_timer": region_ms,
+        "traced_batch_host_ms": traced_ms,
+        "untraced_batch_host_ms": untraced_ms,
+        "launches": launches, "double_start": double_start,
+    }
+    log(f"observability ({card}): platform {platform()!r}, "
+        f"available_devices {result['available_devices']}, a float32 "
+        f"default policy built float32 weights; the trace of "
+        f"{len(batches)} pipeline batches: {path.name}, "
+        f"{result['trace_file_bytes']} bytes, {len(events)} events, "
+        f"{device_events} kernel events ({device_ms:.2f} ms of kernels), "
+        + ", ".join(f"{name} {k['events']} ({k['device_ms']:.4f} ms)"
+                    for name, k in kernels.items())
+        + "; pipeline_batch host ms traced "
+        + ", ".join(f"{t:.2f}" for t in traced_ms)
+        + " (global timer %.2f in all), untraced " % region_ms
+        + ", ".join(f"{t:.2f}" for t in untraced_ms)
+        + f"; launches {launches}; a second start_trace raised: "
+        f"{double_start}")
+    return result
+
+
 def main():
     import torch
 
@@ -2840,6 +2993,7 @@ def main():
     # the sharded NMS and the spatially sharded detector on the card.
     scaleout = scaleout_phase(pipe_params, rf_params, batches, model_boxes,
                               dev, card)
+    traced_batches = batches[:TRACED_BATCHES]
     del batches
     assembly = assembly_phase(card)
     tiled = tiled_phase(rf_params, dev, card)
@@ -2942,6 +3096,11 @@ def main():
                                  "sweep_kernel once each")
         nms_kernel_ms[k] = dict(names, total=total)
 
+    # The package's runtime and tracing names, last: a trace of the warm
+    # pipeline through start_trace/stop_trace.
+    observability = observability_phase(pipe_params, traced_batches, card)
+    del traced_batches
+
     # 7. Results.
     log(json.dumps({"pipeline": {
         "frames_per_s": pipe["fps_median"], "frames_per_s_sweeps": pipe["fps"],
@@ -3007,6 +3166,7 @@ def main():
     log(json.dumps({"recognition_no_landmarks": dict(no_landmarks,
                                                      card=card)}))
     log(json.dumps({"store": dict(store, environment=env, card=card)}))
+    log(json.dumps({"observability": dict(observability, card=card)}))
     log(json.dumps({"kernels": [{
         "name": "fused_peaks",
         "route": "cuda",
@@ -3045,6 +3205,8 @@ def main():
         "scaleout_launches_per_batch":
             scaleout["launches_per_batch"]["fused_peaks"],
         "store_launches": store["store_launches"]["fused_peaks"],
+        "traced_launches": observability["launches"]["fused_peaks"],
+        "traced_batches": observability["traced_batches"],
         "library_ms": None,
         "card": card,
     }, {
@@ -3104,6 +3266,8 @@ def main():
         "scaleout_4_slab_replay_launches":
             2 * scaleout["replay_4_slab_nms_calls"],
         "store_launches": store["store_launches"]["nms"],
+        "traced_launches": observability["launches"]["nms"],
+        "traced_batches": observability["traced_batches"],
         "library_ms": None,
         "card": card,
     }]}))

@@ -1,7 +1,11 @@
 """Device and numerics policy.
 
-``default_device`` is the first CUDA card. There is no quiet CPU fallback:
-callers that want the CPU (the tests) say ``device="cpu"``.
+``default_device`` is the first CUDA card, ``available_devices`` every
+visible card and ``platform`` the string JAX gives an NVIDIA device,
+``"gpu"``. There is no quiet CPU fallback: each raises when no card is
+visible, and callers that want the CPU (the tests) say ``device="cpu"``.
+``default_policy``/``set_default_policy`` hold the numerics policy that
+the models read when they are given no ``compute_dtype``.
 """
 
 import functools
@@ -11,13 +15,31 @@ from dataclasses import dataclass
 import torch
 
 
-def default_device():
-    """The default accelerator, ``cuda``; raises when no card is visible."""
+def _require_card():
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
+
+
+def available_devices():
+    """Every visible CUDA card, ``[cuda:0, cuda:1, ...]``; raises when
+    there is none."""
+    _require_card()
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def default_device():
+    """The default accelerator, ``cuda``; raises when no card is visible."""
+    _require_card()
     return torch.device("cuda")
+
+
+def platform():
+    """The default device's platform string, ``"gpu"`` (JAX's name for an
+    NVIDIA device); raises when no card is visible."""
+    _require_card()
+    return "gpu"
 
 
 def resolve_device(device=None):
@@ -46,9 +68,16 @@ def device_constant(values, dtype, device):
 
 @dataclass(frozen=True)
 class Policy:
-    """Numerics policy for model execution: ``compute_dtype`` is the dtype
-    the convolutions run in (weights are converted in float32)."""
+    """Numerics policy for model execution, with the JAX package's fields
+    in its order, so that positional construction means the same in both.
 
+    ``param_dtype`` is the dtype weights are stored in. Nothing reads it,
+    in either package: the models keep float32 parameters and the port
+    converts weights in float32. ``compute_dtype`` is the dtype the
+    convolutions run in.
+    """
+
+    param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
 
     @staticmethod
@@ -69,6 +98,11 @@ def default_policy():
     if _default_policy is None:
         _default_policy = Policy.from_env()
     return _default_policy
+
+
+def set_default_policy(policy):
+    global _default_policy
+    _default_policy = policy
 
 
 def cast_params_for_compute(state_dict, compute_dtype, keep_f32=()):

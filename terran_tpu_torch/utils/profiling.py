@@ -1,6 +1,13 @@
-"""Logging and host-side timing for the package.
+"""Logging, tracing and host-side timing for the package.
 
 - ``get_logger``: the package's logger.
+- ``trace(name)``: a context manager that marks a region for
+  ``torch.profiler`` (``record_function``) and records its wall time into
+  the ``global_timer()``.
+- ``start_trace(log_dir)``/``stop_trace()``: capture one
+  ``torch.profiler`` trace (host, plus the card's kernels when a card is
+  visible) into a ``*.pt.trace.json`` under ``log_dir``, which
+  TensorBoard's PyTorch profiler plugin and ``chrome://tracing`` open.
 - ``StageTimer``: per-stage wall time and item counts, which the
   pipeline's ``timer=`` hook records into.
 - ``Timeline``: per-batch spans against one origin, which the pipeline's
@@ -19,6 +26,9 @@ import threading
 import time
 from collections import defaultdict
 
+import torch
+from torch.profiler import ProfilerActivity
+
 
 def get_logger(name="terran_tpu_torch"):
     logger = logging.getLogger(name)
@@ -30,6 +40,47 @@ def get_logger(name="terran_tpu_torch"):
         logger.addHandler(handler)
         logger.setLevel(logging.INFO)
     return logger
+
+
+@contextlib.contextmanager
+def trace(name):
+    """Annotate a region for torch.profiler and record its wall time into
+    the global timer; a block that raises records nothing."""
+    start = time.perf_counter()
+    with torch.profiler.record_function(name):
+        yield
+    _GLOBAL_TIMER.record(name, time.perf_counter() - start)
+
+
+_profiler = None
+
+
+def start_trace(log_dir):
+    """Start capturing a trace that ``stop_trace()`` writes under
+    ``log_dir``; only one runs at a time."""
+    global _profiler
+    if _profiler is not None:
+        raise RuntimeError("Profile has already been started. Only one "
+                           "profile may be run at a time.")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)),
+    )
+    profiler.start()
+    _profiler = profiler
+
+
+def stop_trace():
+    """Stop the trace that ``start_trace`` started and write it."""
+    global _profiler
+
+    if _profiler is None:
+        raise RuntimeError("No profile started")
+    profiler, _profiler = _profiler, None
+    profiler.stop()
 
 
 class StageTimer:
@@ -128,3 +179,10 @@ class Timeline:
                          round((s1 - t0) * 1000, 1)]
                     )
         return out
+
+
+_GLOBAL_TIMER = StageTimer()
+
+
+def global_timer():
+    return _GLOBAL_TIMER
