@@ -1,0 +1,51 @@
+"""Random weights in the published checkpoints' key format, drawn on the
+device from the run's seed: one normal draw for all of a model's floats,
+then sliced and scaled per tensor (``reference/models.py::specs``).
+float32, the masters that the program converts and casts to the type it
+serves them in."""
+
+import torch
+
+from reference.models import specs
+
+FAMILIES = ("retinaface", "arcface", "openpose")
+
+
+def family_seed(seed, family):
+    """A seed of its own for each model, so that one model's draw does not
+    depend on another's size."""
+    return (int(seed) * len(FAMILIES) + FAMILIES.index(family)) % (2 ** 63)
+
+
+def make_state_dict(family, seed, device):
+    """{key: tensor} of ``family`` on ``device``, the same for the same
+    seed."""
+    table = specs(family)
+    sizes = [torch.Size(shape).numel() for _, shape, init in table
+             if init[0] != "zero_int"]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(family_seed(seed, family))
+    flat = torch.randn(sum(sizes), generator=gen, device=device,
+                       dtype=torch.float32)
+    out, offset = {}, 0
+    for key, shape, init in table:
+        if init[0] == "zero_int":
+            out[key] = torch.zeros(shape, dtype=torch.int64, device=device)
+            continue
+        n = torch.Size(shape).numel()
+        draw = flat[offset:offset + n].reshape(shape)
+        offset += n
+        if init[0] == "normal":
+            out[key] = draw * init[1]
+        elif init[0] == "one_plus":
+            out[key] = 1.0 + draw * init[1]
+        elif init[0] == "abs_plus":
+            out[key] = (draw * init[1]).abs_() + init[2]
+        else:
+            raise ValueError(f"unknown init {init} for {key}")
+    return out
+
+
+def make_weights(seed, device):
+    """{family: state dict} of the three models."""
+    return {f: make_state_dict(f, seed, device) for f in FAMILIES}
