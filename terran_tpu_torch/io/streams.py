@@ -10,11 +10,13 @@ anything with the ``Video`` iterator protocol that raises this package's
 of rotation and the final partial batch is flushed.
 """
 
+import time
 from collections import deque
 
 import numpy as np
 
 from terran_tpu_torch.io.video import EndOfVideo
+from terran_tpu_torch.utils.profiling import profiler_range
 
 
 class StreamMultiplexer:
@@ -124,11 +126,11 @@ class MultiStreamPerception:
 
     def _results(self, out, meta):
         faces_per_frame = self.pipeline.faces_from(out)
+        if self.track:
+            faces_per_frame = self._tracked(faces_per_frame, meta)
         results = []
         for slot, (stream_idx, frame_idx) in enumerate(meta):
             faces = faces_per_frame[slot]
-            if self.track:
-                faces = self.trackers[stream_idx].update(faces)
             results.append({
                 "stream": stream_idx,
                 "frame": frame_idx,
@@ -140,3 +142,20 @@ class MultiStreamPerception:
                 "pose": out["poses"][slot] if "poses" in out else None,
             })
         return results
+
+    def _tracked(self, faces_per_frame, meta):
+        """Each frame's faces through its stream's tracker, in order, inside
+        one ``terran::track`` profiler range. With a ``StageTimer`` on the
+        pipeline (its ``timer``), the batch's ``update`` calls record one
+        ``track`` stage, items the frames."""
+        timer = getattr(self.pipeline, "timer", None)
+        clock = time.perf_counter if timer is not None else lambda: 0.0
+        tracked, seconds = [], 0.0
+        with profiler_range("terran::track"):
+            for faces, (stream_idx, _) in zip(faces_per_frame, meta):
+                start = clock()
+                tracked.append(self.trackers[stream_idx].update(faces))
+                seconds += clock() - start
+        if timer is not None:
+            timer.record("track", seconds, items=len(meta))
+        return tracked

@@ -18,7 +18,7 @@ from torch import nn
 
 from terran_tpu_torch.models.layers import ConvBias, max_pool_2x2
 from terran_tpu_torch.models.quant import (
-    QuantConv2d, keep_float64_copies, quantize_state_dict,
+    QuantConv2d, conv_range, keep_float64_copies, quantize_state_dict,
 )
 
 PAF_CHANNELS = 38
@@ -144,12 +144,13 @@ class _Int8ConvBias(QuantConv2d):
         self.act = act
 
     def forward(self, x):
-        acc, xs = self.accumulate(x)
-        y = torch.addcmul(self.bias64, acc.to(torch.float32),
-                          xs * self.weight_scale).to(torch.float32)
-        if self.act == "relu":
-            y = torch.relu(y)
-        return y.to(self.bias.dtype)
+        with conv_range(x, self.weight_q, self.stride, self.padding):
+            acc, xs = self.accumulate(x)
+            y = torch.addcmul(self.bias64, acc.to(torch.float32),
+                              xs * self.weight_scale).to(torch.float32)
+            if self.act == "relu":
+                y = torch.relu(y)
+            return y.to(self.bias.dtype)
 
 
 def _max_pool_nhwc(x):

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from terran_tpu_torch.runtime import device_constant
+from terran_tpu_torch.utils.profiling import profiler_range
 
 QMAX = 127.0
 # float32(1 / 127): the jitted JAX program computes the activation scale
@@ -48,6 +49,9 @@ SCALE_FLOOR = 1e-12
 # sum as it was.
 INT_MM_MULTIPLE = 8
 INT_MM_MIN_ROWS = 17
+# The profiler range of one int8 conv: batch, input height, width and
+# channels, output channels, kernel, stride, padding.
+CONV_RANGE = "terran::quant_conv n{} h{} w{} c{} o{} k{} s{} p{}"
 
 
 def _round_up(x, multiple):
@@ -195,14 +199,27 @@ def quant_conv_int32_plain(x, weight_q, stride, padding, group=None):
     return conv_int32_plain(xq, weight_q, stride, padding), xs
 
 
+def conv_range(x, weight_q, stride, padding):
+    """The ``terran::quant_conv`` profiler range (:data:`CONV_RANGE`) of
+    one int8 conv of NHWC ``x`` with OIHW ``weight_q``, from quantisation
+    to dequantisation, or the shared no-op context when no profiler
+    records. It is named by the conv's own dims, so the work it stands
+    for does not depend on how the conv is computed."""
+    n, h, w, c = x.shape
+    return profiler_range(CONV_RANGE, n, h, w, c, weight_q.shape[0],
+                          weight_q.shape[-1], stride, padding)
+
+
 def quant_conv(x, weight_q, weight_scale, stride, padding, out_dtype,
                weight_mat=None, group=None):
     """int8 conv of NHWC ``x`` with a dynamic per-tensor activation scale,
-    dequantised and cast to ``out_dtype`` (``models/quant.py::quant_conv``).
-    ``quant_conv.launches`` counts its ``torch._int_mm`` calls."""
-    acc, xs = quant_conv_int32(x, weight_q, stride, padding, weight_mat,
-                               group)
-    return dequantize(acc, xs, weight_scale, out_dtype)
+    dequantised and cast to ``out_dtype`` (``models/quant.py::quant_conv``),
+    inside one :func:`conv_range`. ``quant_conv.launches`` counts its
+    ``torch._int_mm`` calls."""
+    with conv_range(x, weight_q, stride, padding):
+        acc, xs = quant_conv_int32(x, weight_q, stride, padding, weight_mat,
+                                   group)
+        return dequantize(acc, xs, weight_scale, out_dtype)
 
 
 quant_conv.launches = 0

@@ -63,6 +63,7 @@ import contextlib
 import functools
 import itertools
 import threading
+import time
 import weakref
 from concurrent.futures import Future, ThreadPoolExecutor
 
@@ -108,6 +109,9 @@ from terran_tpu_torch.runtime import (
     default_policy, resolve_device,
 )
 from terran_tpu_torch.utils.convert import as_state_dict
+from terran_tpu_torch.utils.profiling import (
+    NO_RANGE, profiler_range, profiling,
+)
 
 CROP_SIDE = 112  # the FaceResNet100 input
 
@@ -742,16 +746,25 @@ class PerceptionPipeline:
             return src.pin_memory().to(self.device, non_blocking=True)
         return src.to(self.device, copy=True)
 
-    @contextlib.contextmanager
     def _stage(self, name, items=0, nbytes=0, batch=None):
-        """Timing context for one pipeline stage: records into the
-        aggregate StageTimer and, when a Timeline is attached and the
-        span carries a batch id, into the per-batch timeline."""
+        """Context for one pipeline stage: a ``terran::<name>`` range while
+        a profiler records this thread, a record into the aggregate
+        StageTimer and, when a Timeline is attached and the span carries a
+        batch id, into the per-batch timeline. With none of the three it
+        is the shared no-op context."""
+        timeline = self.timeline if batch is not None else None
+        if self.timer is None and timeline is None and not profiling():
+            return NO_RANGE
+        return self._stage_spans(name, items, nbytes, batch, timeline)
+
+    @contextlib.contextmanager
+    def _stage_spans(self, name, items, nbytes, batch, timeline):
         with contextlib.ExitStack() as st:
+            st.enter_context(profiler_range("terran::{}", name))
             if self.timer is not None:
                 st.enter_context(self.timer.stage(name, items))
-            if self.timeline is not None and batch is not None:
-                st.enter_context(self.timeline.span(batch, name, nbytes))
+            if timeline is not None:
+                st.enter_context(timeline.span(batch, name, nbytes))
             yield
 
     def _uses_cv2(self):
@@ -1326,7 +1339,11 @@ class PerceptionPipeline:
         precede the dispatch loop: the host resizes
         (``host_resize_thread``), then their uploads (``h2d_thread``).
 
-        Yields one result dict per input batch, in order.
+        Yields one result dict per input batch, in order. With a
+        ``timer`` attached, each batch also records a ``release_wait``:
+        host seconds from the end of its ``dispatch_batch`` to the start
+        of its ``collect_batch``, less its own ``advance_batch``, the time
+        it waited for later batches to be dispatched.
         """
         from collections import deque
 
@@ -1355,20 +1372,39 @@ class PerceptionPipeline:
         # runs immediately, but phase B (collect_batch: the heavy fetches +
         # assembly) waits one further slot, so the limb/embed programs
         # dispatched in phase A compute while the NEXT batch advances.
+        # pending holds (dispatched batch, its dispatch's end), advanced
+        # (advanced state, that end, the advance's seconds); with no timer
+        # no clock is read.
+        timer = self.timer
+        clock = time.perf_counter if timer is not None else lambda: 0.0
+
+        def advance(entry):
+            args, dispatched = entry
+            start = clock()
+            state = self.advance_batch(*args)
+            return state, dispatched, clock() - start
+
+        def collect(entry):
+            state, dispatched, advance_s = entry
+            if timer is not None:
+                timer.record("release_wait",
+                             clock() - dispatched - advance_s)
+            return self.collect_batch(state)
+
         pending = deque()
         advanced = deque()
         for frames in batches:
-            pending.append(self.dispatch_batch(frames))
+            pending.append((self.dispatch_batch(frames), clock()))
             if len(pending) > depth:
-                advanced.append(self.advance_batch(*pending.popleft()))
+                advanced.append(advance(pending.popleft()))
             if len(advanced) > 1:
-                yield self.collect_batch(advanced.popleft())
+                yield collect(advanced.popleft())
         while pending:
-            advanced.append(self.advance_batch(*pending.popleft()))
+            advanced.append(advance(pending.popleft()))
             if len(advanced) > 1:
-                yield self.collect_batch(advanced.popleft())
+                yield collect(advanced.popleft())
         while advanced:
-            yield self.collect_batch(advanced.popleft())
+            yield collect(advanced.popleft())
 
     def faces_from(self, out):
         """Convert step outputs to the task-API list-of-dicts contract."""

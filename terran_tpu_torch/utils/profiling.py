@@ -4,6 +4,10 @@
 - ``trace(name)``: a context manager that marks a region for
   ``torch.profiler`` (``record_function``) and records its wall time into
   the ``global_timer()``.
+- ``profiler_range(name)``: a range in the running profiler's trace only
+  while a profiler records the calling thread, else a shared no-op
+  context; the pipeline's stages, the int8 convs and the stream trackers
+  open ``terran::<name>`` ranges through it.
 - ``start_trace(log_dir)``/``stop_trace()``: capture one
   ``torch.profiler`` trace (host, plus the card's kernels when a card is
   visible) into a ``*.pt.trace.json`` under ``log_dir``, which
@@ -42,12 +46,41 @@ def get_logger(name="terran_tpu_torch"):
     return logger
 
 
+NO_RANGE = contextlib.nullcontext()
+
+
+def profiling():
+    """Whether a ``torch.profiler`` records the calling thread's ops now.
+    The test is thread-local: a thread that the profiler does not record
+    (one started before it, such as the pipeline's upload thread) reads
+    False. It costs a fraction of a microsecond; entering even a range
+    that no profiler records costs more."""
+    return torch._C._autograd._profiler_enabled()
+
+
+def profiler_range(name, *fields):
+    """A range named ``name.format(*fields)`` in the trace while a profiler
+    records the calling thread, else the shared ``NO_RANGE``; the name is
+    formatted only when the range opens. The range is a host op
+    (``RecordFunctionFast``), not a ``record_function`` user annotation,
+    which the profiler also mirrors onto the device's timeline as one
+    event spanning the kernels launched inside it, idle time between them
+    included."""
+    if not profiling():
+        return NO_RANGE
+    return torch._C._profiler._RecordFunctionFast(
+        name.format(*fields) if fields else name)
+
+
 @contextlib.contextmanager
 def trace(name):
     """Annotate a region for torch.profiler and record its wall time into
-    the global timer; a block that raises records nothing."""
+    the global timer; a block that raises records nothing. The region is
+    a ``record_function`` user annotation, entered only while a profiler
+    records the calling thread."""
     start = time.perf_counter()
-    with torch.profiler.record_function(name):
+    with (torch.profiler.record_function(name) if profiling()
+          else NO_RANGE):
         yield
     _GLOBAL_TIMER.record(name, time.perf_counter() - start)
 
@@ -161,24 +194,6 @@ class Timeline:
             [b, e, round(s * 1000, 1), round((t - s) * 1000, 1), n]
             for b, e, s, t, n in sorted(self.events, key=lambda r: r[2])
         ]
-
-    def gaps(self):
-        """Host-idle gaps > 1 ms between consecutive spans per batch —
-        time the main thread spent elsewhere (another batch's stages, or
-        genuinely idle)."""
-        out = []
-        by_batch = defaultdict(list)
-        for b, e, s, t, _ in self.events:
-            by_batch[b].append((s, t, e))
-        for b, spans in by_batch.items():
-            spans.sort()
-            for (s0, t0, e0), (s1, t1, e1) in zip(spans, spans[1:]):
-                if s1 - t0 > 0.001:
-                    out.append(
-                        [b, f"{e0}->{e1}", round(t0 * 1000, 1),
-                         round((s1 - t0) * 1000, 1)]
-                    )
-        return out
 
 
 _GLOBAL_TIMER = StageTimer()
