@@ -15,10 +15,12 @@ rank together, exits nonzero and prints no result line):
    bf16) under the mesh, a global batch of 8 1080p frames a card: one
    batch with deterministic cuDNN, each rank's rows of the result equal
    bit for bit to a no-mesh pipeline run on those rows alone on its card
-   (the same programs at the same shapes); then 3 timed
+   (the same programs at the same shapes, both eager: the no-mesh
+   pipeline's CUDA graphs are set aside for it); then 3 timed
    ``process_stream`` sweeps of 8 global batches, the kernels' launches
    counted on every rank, beside the no-mesh pipeline at 8 frames a batch
-   on rank 0's card alone (the other ranks wait in a gloo barrier, which
+   on rank 0's card alone, which replays its CUDA graphs while the mesh
+   runs eager (the other ranks wait in a gloo barrier, which
    blocks on a socket instead of spinning on a CUDA sync); each rank's
    ``StageTimer`` ms a batch by stage is printed for both, so that the
    host work every rank repeats for the global batch (planning the
@@ -159,11 +161,15 @@ def main():
     single.warmup(per_card, *frame_shape)
     own = slice(rank * per_card, (rank + 1) * per_card)
     torch.backends.cudnn.deterministic = True
+    # The mesh pipeline runs its programs' eager launches: so does the
+    # no-mesh one here, its captured CUDA graphs set aside.
+    graphs, single._graphs = single._graphs, {}
     try:
         got = meshed.process_batch(batches[0])
         expected = single.process_batch(batches[0][own])
     finally:
         torch.backends.cudnn.deterministic = False
+        single._graphs = graphs
     keys = ("boxes", "landmarks", "scores", "mask", "det_overflow",
             "embeddings", "embeddings_mask", "pose_overflow")
     same = all(np.array_equal(got[k][own], expected[k]) for k in keys) and (

@@ -54,16 +54,26 @@ Phases (any failure raises, exits nonzero and prints no result line):
    ``process_batch``, one ``dispatch_batch`` on resident frames that must
    make no synchronizing call (``torch.cuda.set_sync_debug_mode("error")``),
    then 3 timed ``process_stream`` sweeps over 8 seeded
-   batches of 8 1080p frames, each result's shapes checked; both kernels
-   must launch on every batch of the sweeps (counts set to 0 before them);
-   it prints frames/s, the ``StageTimer`` summary and the launches per
-   batch; then ``max_escalations=2`` on 2 frames must raise every
+   batches of 8 1080p frames, each result's shapes checked; it prints
+   frames/s and the ``StageTimer`` summary; every device-program call of
+   the sweeps must replay a graph and every batch call its perception and
+   pose programs once (the kernels of those replays are counted in phase
+   6); then ``max_escalations=2`` on 2 frames must raise every
    escalation counter (detect, pose, embed);
+   the pipeline's CUDA graphs (``graphs_phase``): ``process_stream``
+   (depth 2) over 4 distinct seeded 1080p batches, replaying the graphs
+   ``warmup`` captured, equals the same stream down the eager closures
+   bit for bit, every output, pose, peak table and limb table, at
+   bench.py's configuration and at top_k 4 with a keypoint threshold that
+   puts the embed and limb programs at buckets below their maximum; the
+   fused embed and limbs on one batch likewise;
    this slice's main path, concurrent streams: 4 seeded 1080p
    ``SyntheticVideo`` noise streams of 16 frames (source batch 4) through
    ``MultiStreamPerception`` on the warm pipeline, batch 8, tracking on, 2
-   timed sweeps of 8 batches: every (stream, frame) exactly once, both
-   kernels launched on every batch, frames/s beside plain
+   timed sweeps of 8 batches: every (stream, frame) exactly once, every
+   batch's perception and pose programs called before it is yielded and
+   every program call a replay (their kernels counted in phase 6),
+   frames/s beside plain
    ``process_stream`` over the same multiplexed batches, the host time in
    ``Sort.update``; the faces, tracks, embeddings and poses equal to
    ``process_batch`` on those batches plus a fresh ``Sort`` per stream;
@@ -132,14 +142,21 @@ Phases (any failure raises, exits nonzero and prints no result line):
 6. ``torch.profiler``: the CUDA kernels of one peak-scan call (at most 2),
    the kernels' device time at K=16, 32 and 128, and the CUDA kernels of
    one NMS suppression call (2: mask and sweep) with each one's device
-   time at K=64, 256 and 1024; then, last, the package's runtime and
+   time at K=64, 256 and 1024; the kernel launches of the warm pipeline's
+   ``process_stream`` and of the concurrent streams, from the profiler's
+   kernel records of one sweep each like the timed ones (a replayed CUDA
+   graph's kernels are recorded there, and the kernels' Python counters
+   do not see them; the profiler comes last because it stays attached to
+   the process and slows later launches): exactly 2 of each pair a batch,
+   every program call a replay; then, last, the package's runtime and
    tracing names (``observability_phase``): ``platform()`` is 'gpu' and
    ``available_devices()`` the visible cards, a float32
    ``set_default_policy`` reaches a ``Detection`` built with no
    ``compute_dtype``, and ``start_trace``/``stop_trace`` around 2 batches
    of a warm pipeline at bench.py's configuration, each inside
    ``trace("pipeline_batch")``, write a ``*.pt.trace.json`` that must hold
-   the region and the four kernels (scan, merge, mask, sweep); the global
+   the region and the four kernels (scan, merge, mask, sweep), 2 of each
+   pair a batch; the global
    timer counts 2 regions and a second ``start_trace`` raises;
 7. JSON lines describing the pipeline, its host plan, the streams, the
    int8 trunks and their conv shapes, the tiled call, the scale-out
@@ -183,6 +200,11 @@ PIPE_CONFIG = {"top_k": 64, "max_faces": 8, "max_peaks": 16,
 PIPE_BATCHES = 8
 PIPE_SWEEPS = 3
 PIPE_DEPTH = 2
+# CUDA graphs against eager launches: distinct batches through a depth-2
+# stream, and the top_k at which every frame's faces fit a bucket below
+# max_faces.
+GRAPH_BATCHES = 4
+GRAPH_TOP_K = 4
 # Concurrent streams (examples/streams.py, BASELINE.md config 5): 4 seeded
 # 1080p noise streams of 16 frames read 4 at a time, through the warm
 # pipeline at batch 8 with tracking, 2 timed sweeps of 8 batches.
@@ -317,6 +339,52 @@ def profile_call(fn, calls, counts=None):
     by_name = {name: device_ms[name] / n * max(1, round(n / calls))
                for name, n in records.items()}
     return (sum(records.values()) / calls, sum(by_name.values()), by_name)
+
+
+def kernel_launches(fn):
+    """{"fused_peaks": scan + merge records, "nms": mask + sweep records}
+    of one call of ``fn``, from torch.profiler's kernel records (through
+    ``profile_call``, which calls ``fn`` three times), as the benchmark
+    counts launches: a replayed CUDA graph's kernels are recorded there,
+    while the kernels' Python counters see only eager launches."""
+    counts = {}
+    profile_call(fn, 1, counts)
+    return {"fused_peaks": (counts.get("scan_kernel", 0)
+                            + counts.get("merge_kernel", 0)),
+            "nms": counts.get("mask_kernel", 0) + counts.get("sweep_kernel", 0)}
+
+
+def check_launches(launches, batches, what):
+    """Both kernels on every batch: exactly 2 launches a batch of each
+    pair."""
+    for name, count in launches.items():
+        if count != 2 * batches:
+            raise AssertionError(f"{what} launched {name}'s kernels {count} "
+                                 f"times over {batches} batches, expected "
+                                 f"{2 * batches}")
+
+
+def dispatched(pipe, since=(0, 0)):
+    """(perception programs, pose programs) the pipeline has called since
+    ``since``, from its StageTimer: a batch records ``perception_step`` and
+    ``pose_dispatch`` once each, around the programs that hold the NMS and
+    the peak-scan kernels."""
+    counts = pipe.timer.counts
+    return (counts.get("perception_step", 0) - since[0],
+            counts.get("pose_dispatch", 0) - since[1])
+
+
+def check_replayed(pipe, calls_before, batches, since, what):
+    """Every device-program call since ``calls_before`` (a copy of
+    ``graph_calls``) replayed a graph, and each of ``batches`` batches
+    called its perception and pose programs once."""
+    calls = {k: pipe.graph_calls[k] - calls_before[k] for k in calls_before}
+    if calls["eager"] or dispatched(pipe, since) != (batches, batches):
+        raise AssertionError(f"{what}: device-program calls {calls}, "
+                             f"perception and pose dispatches "
+                             f"{dispatched(pipe, since)} over {batches} "
+                             "batches")
+    return calls
 
 
 def kernel_bound_ms(m, h, w, k, factor=8):
@@ -767,13 +835,13 @@ def pipeline_batches():
 def pipeline_phase(params, batches, card, task_ms):
     """The perception pipeline at bench.py's configuration, bf16: warmup,
     one batch, then PIPE_SWEEPS timed ``process_stream`` sweeps over
-    ``batches``, with both kernels' launches counted over the sweeps; then
+    ``batches``, every device-program call a replay and every batch's
+    perception and pose programs called once (the kernels those replay
+    are counted in phase 6, under the profiler); then
     an escalating run that must raise every escalation counter. Returns
     the pipeline's fields for the result lines, and the warm pipeline."""
     import torch
 
-    from terran_tpu_torch.ops import fused_peaks as fp
-    from terran_tpu_torch.ops import nms
     from terran_tpu_torch.pipeline import PerceptionPipeline
     from terran_tpu_torch.utils.profiling import StageTimer
 
@@ -802,8 +870,7 @@ def pipeline_phase(params, batches, card, task_ms):
 
     timer.reset()
     uploaded = pipe.upload_bytes
-    fp.find_peaks_fused.launches = 0
-    nms.suppress.launches = 0
+    graph_calls = dict(pipe.graph_calls)
     fps = []
     for _ in range(PIPE_SWEEPS):
         start = time.perf_counter()
@@ -813,14 +880,8 @@ def pipeline_phase(params, batches, card, task_ms):
             check_pipeline_result(out, BATCH, PIPE_CONFIG)
     swept = PIPE_SWEEPS * PIPE_BATCHES
     upload_per_frame = (pipe.upload_bytes - uploaded) / (swept * BATCH)
-    launches = {"fused_peaks": fp.find_peaks_fused.launches,
-                "nms": 2 * nms.suppress.launches}
-    # Both kernels on every batch: a peak scan (scan + merge) and an NMS
-    # suppression (mask + sweep) each.
-    for name, count in launches.items():
-        if count < 2 * swept:
-            raise AssertionError(f"the pipeline launched {name}'s kernels "
-                                 f"{count} times over {swept} batches")
+    graph_calls = check_replayed(pipe, graph_calls, swept, (0, 0),
+                                 "the pipeline's sweeps")
     fps_median = sorted(fps)[len(fps) // 2]
     batch_ms = BATCH * 1e3 / fps_median
     summary = timer.summary()
@@ -832,8 +893,7 @@ def pipeline_phase(params, batches, card, task_ms):
         + f"; median {fps_median:.2f} frames/s = {batch_ms:.2f} ms/batch, "
         f"against {sum(task_ms.values()):.2f} ms/batch for the three task "
         f"APIs in this run ({', '.join(f'{k} {v:.2f}' for k, v in task_ms.items())}"
-        f"); kernel launches per batch: fused_peaks "
-        f"{launches['fused_peaks'] / swept:g}, nms {launches['nms'] / swept:g}")
+        f"); device-program calls over the sweeps {graph_calls}")
     log("pipeline stage timer (host wall time, the sweeps): "
         + json.dumps(summary))
 
@@ -847,9 +907,150 @@ def pipeline_phase(params, batches, card, task_ms):
         f"{esc_out['embeddings'].shape}")
     return {"fps": fps, "fps_median": fps_median, "batch_ms": batch_ms,
             "warmup_programs": programs, "warmup_s": warm_s,
-            "batches": swept, "launches": launches, "stages": summary,
+            "batches": PIPE_BATCHES, "graph_calls": graph_calls,
+            "stages": summary,
             "task_ms": task_ms, "escalations": esc.escalations,
             "upload_bytes_per_frame": upload_per_frame}, pipe
+
+
+def recorded_assembly(tables):
+    """Install a wrapper on the pipeline's ``assemble_humans`` that appends
+    copies of every peak and limb table it is handed to ``tables``.
+    Returns the original, to put back."""
+    import numpy as np
+
+    import terran_tpu_torch.pipeline as program
+
+    original = program.assemble_humans
+
+    def recording(*args, **kwargs):
+        tables.append([np.array(a) for a in args])
+        return original(*args, **kwargs)
+
+    program.assemble_humans = recording
+    return original
+
+
+def graphs_phase(params, card):
+    """The pipeline's CUDA graphs against its eager launches, bf16, bit for
+    bit: ``process_stream(depth=PIPE_DEPTH)`` over GRAPH_BATCHES distinct
+    seeded 1080p batches, once replaying what ``warmup`` captured and once
+    down the cached eager closures (the same pipeline, its graph cache set
+    aside). Every yielded output and pose and every peak and limb table
+    handed to the pose assembly must be equal, and every call of the first
+    run must replay. Two pipelines: bench.py's configuration, and one at
+    ``top_k`` GRAPH_TOP_K with its keypoint threshold set before warmup
+    from an eager pass (above each part's 9th peak), so that its embed and
+    limb programs run at buckets below their maximum. Then the fused
+    embed and fused limbs programs, one batch each way."""
+    import numpy as np
+    import torch
+
+    import terran_tpu_torch.pipeline as program
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+
+    rng = np.random.default_rng(SEED + 5)
+    batches = [rng.integers(0, 255, (BATCH,) + FRAME + (3,), dtype=np.uint8)
+               for _ in range(GRAPH_BATCHES)]
+
+    def keypoint_threshold(pipe):
+        """Just above the 9th peak's score of the fullest part: every part
+        then keeps at most 8 peaks, below the 16 of max_peaks."""
+        detect_pose = pipe._pose_detect_fn(*FRAME)
+        with torch.inference_mode():
+            peaks = [detect_pose(pipe.put_frames(b))[0].cpu().numpy()
+                     for b in batches]
+        scores = np.concatenate([p[..., 2] for p in peaks])
+        valid = np.concatenate([p[..., 3] > 0.5 for p in peaks])
+        ranked = -np.sort(-np.where(valid, scores, -np.inf), axis=-1)
+        ninth = ranked[..., 8].max()
+        if not np.isfinite(ninth):
+            return None  # no part has 9 peaks
+        return float(np.nextafter(np.float32(ninth), np.float32(np.inf)))
+
+    def both_ways(pipe, run):
+        tables = []
+        original = recorded_assembly(tables)
+        try:
+            start = dict(pipe.graph_calls)
+            got = run()
+            calls = {k: pipe.graph_calls[k] - start[k] for k in start}
+            got_tables, tables[:] = list(tables), []
+            graphs, pipe._graphs = pipe._graphs, {}
+            try:
+                expected = run()
+            finally:
+                pipe._graphs = graphs
+        finally:
+            program.assemble_humans = original
+        if calls["eager"] or not calls["replayed"]:
+            raise AssertionError(f"graphs: device-program calls {calls}")
+        for i, (g, e) in enumerate(zip(got, expected)):
+            assert_same_pipeline(g, e, f"graphs: batch {i}, replayed vs "
+                                       "eager")
+        if len(got_tables) != len(tables) or not got_tables:
+            raise AssertionError(f"graphs: {len(got_tables)} and "
+                                 f"{len(tables)} assemblies")
+        for i, (g, e) in enumerate(zip(got_tables, tables)):
+            for name, a, b in zip(("coords", "scores", "valid", "reg",
+                                   "accept"), g, e):
+                if a.shape != b.shape or not np.array_equal(a, b):
+                    raise AssertionError(f"graphs: frame {i}: {name} "
+                                         "differs, replayed vs eager")
+        return got, got_tables, calls
+
+    def stream(pipe):
+        return lambda: list(pipe.process_stream(batches, depth=PIPE_DEPTH))
+
+    fields = {}
+    main = PerceptionPipeline(**pipeline_kwargs(params))
+    main.warmup(BATCH, *FRAME)
+    out, tables, calls = both_ways(main, stream(main))
+    fields["main"] = {"graphs": len(main._graphs), "calls": calls,
+                      "limb_buckets": sorted({t[3].shape[-1]
+                                              for t in tables})}
+    del main
+
+    small = PerceptionPipeline(**pipeline_kwargs(params, top_k=GRAPH_TOP_K))
+    threshold = keypoint_threshold(small)
+    if threshold is not None:
+        small.keypoint_threshold = threshold
+    small.warmup(BATCH, *FRAME)
+    out, tables, calls = both_ways(small, stream(small))
+    embed_buckets = set()
+    for o in out:
+        occupied = int((o["mask"] * np.arange(1, o["mask"].shape[1] + 1))
+                       .max())
+        if occupied:
+            embed_buckets.add(small._select_embed_bucket(occupied,
+                                                         small.max_faces))
+    limb_buckets = sorted({t[3].shape[-1] for t in tables})
+    if (not embed_buckets or max(embed_buckets) >= small.max_faces
+            or not limb_buckets or max(limb_buckets) >= small.max_peaks):
+        raise AssertionError(f"graphs: embed buckets {embed_buckets} of "
+                             f"{small.max_faces}, limb buckets "
+                             f"{limb_buckets} of {small.max_peaks}")
+    fields["buckets"] = {"graphs": len(small._graphs), "calls": calls,
+                         "top_k": GRAPH_TOP_K,
+                         "keypoint_threshold": threshold,
+                         "embed_buckets": sorted(embed_buckets),
+                         "limb_buckets": limb_buckets}
+    del small
+
+    fused = PerceptionPipeline(**pipeline_kwargs(
+        params, embed_dispatch="fused", limb_dispatch="fused"))
+    fused.warmup(BATCH, *FRAME)
+    _, _, calls = both_ways(fused, lambda: [fused.process_batch(batches[0])])
+    fields["fused"] = {"graphs": len(fused._graphs), "calls": calls}
+    del fused
+    torch.cuda.synchronize()
+    log(f"graphs ({card}): process_stream(depth={PIPE_DEPTH}) over "
+        f"{GRAPH_BATCHES} distinct batches x {BATCH} x {FRAME[0]}x{FRAME[1]}, "
+        f"bf16, replayed CUDA graphs equal to the eager launches bit for bit "
+        f"(outputs, poses, peak and limb tables): bench.py's configuration "
+        f"{fields['main']}; top_k {GRAPH_TOP_K} {fields['buckets']}; fused "
+        f"embed and limbs, one batch, {fields['fused']}")
+    return fields
 
 
 def check_pipeline_result(out, n, config):
@@ -1398,11 +1599,15 @@ def scaleout_phase(params, rf_params, batches, model_boxes, dev, card):
 
         assert_same = assert_same_pipeline
         torch.backends.cudnn.deterministic = True
+        # The mesh pipeline runs its programs' eager launches: so does the
+        # plain one here, its captured graphs set aside.
+        graphs, plain._graphs = plain._graphs, {}
         try:
             expected = plain.process_batch(batches[0])
             got = meshed.process_batch(batches[0])
         finally:
             torch.backends.cudnn.deterministic = False
+            plain._graphs = graphs
         assert_same(got, expected, "mesh vs no-mesh pipeline")
         for pipe in (plain, meshed):  # ramp, as pipeline_phase does
             for _ in pipe.process_stream(batches[:2], depth=PIPE_DEPTH):
@@ -1649,8 +1854,10 @@ def streams_phase(pipe, card):
     """The slice's main path: STREAMS concurrent 1080p streams through
     ``MultiStreamPerception`` on the warm pipeline, batch BATCH, with
     per-stream SORT tracking, STREAM_SWEEPS timed sweeps. Every (stream,
-    frame) once, frame indices contiguous from 0, both kernels launched
-    on every batch (counted at each yield), the host time in
+    frame) once, frame indices contiguous from 0, every batch's
+    perception and pose programs called before it is yielded and every
+    program call a replay (the kernels those replay are counted in phase
+    6, under the profiler), the host time in
     ``Sort.update``; plain ``process_stream`` over the same multiplexed
     batches timed beside it. Then the faces, embeddings, poses and tracks
     against ``process_batch`` on those batches and a fresh ``Sort`` per
@@ -1661,8 +1868,6 @@ def streams_phase(pipe, card):
     from terran_tpu_torch.io.streams import (
         MultiStreamPerception, StreamMultiplexer,
     )
-    from terran_tpu_torch.ops import fused_peaks as fp
-    from terran_tpu_torch.ops import nms
     from terran_tpu_torch.tracking.face import KalmanTracker
 
     frames_total = STREAMS * STREAM_FRAMES
@@ -1680,30 +1885,24 @@ def streams_phase(pipe, card):
                 return out
             tracker.update = update
         base = KalmanTracker.count
-        fp.find_peaks_fused.launches = 0
-        nms.suppress.launches = 0
+        calls, since = dict(pipe.graph_calls), dispatched(pipe)
         results = []
         start = time.perf_counter()
         for i, batch in enumerate(msp):
-            # Batch i was dispatched before it is yielded.
-            if (fp.find_peaks_fused.launches < 2 * (i + 1)
-                    or nms.suppress.launches < i + 1):
-                raise AssertionError(
-                    f"streams batch {i}: kernels not launched (fused_peaks "
-                    f"{fp.find_peaks_fused.launches}, nms suppress calls "
-                    f"{nms.suppress.launches})")
+            # Batch i was dispatched before it is yielded: its perception
+            # and pose programs, which hold both kernels, were called.
+            if min(dispatched(pipe, since)) < i + 1:
+                raise AssertionError(f"streams batch {i}: perception and "
+                                     f"pose dispatches "
+                                     f"{dispatched(pipe, since)}")
             results.extend(batch)
         elapsed = time.perf_counter() - start
-        launches = {"fused_peaks": fp.find_peaks_fused.launches,
-                    "nms": 2 * nms.suppress.launches}
-        if launches != {"fused_peaks": 2 * batches, "nms": 2 * batches}:
-            raise AssertionError(f"streams: launches {launches} over "
-                                 f"{batches} batches, expected 2 each a batch")
+        check_replayed(pipe, calls, batches, since, "streams")
         if len(track_s) != frames_total:
             raise AssertionError(f"{len(track_s)} Sort.update calls for "
                                  f"{frames_total} frames")
         sweeps.append({"fps": frames_total / elapsed, "results": results,
-                       "base": base, "launches": launches,
+                       "base": base,
                        "track_ms_per_batch": 1e3 * sum(track_s) / batches})
 
     seen = [(r["stream"], r["frame"]) for r in sweeps[-1]["results"]]
@@ -1788,9 +1987,7 @@ def streams_phase(pipe, card):
         + f", median {plain_median:.2f} ({fps_median / plain_median:.3f}x); "
         f"Sort.update host ms a batch ({BATCH} calls over {STREAMS} trackers) "
         + ", ".join(f"{t:.3f}" for t in track_ms)
-        + f"; every (stream, frame) once; kernel launches per batch: "
-        f"fused_peaks {sweeps[-1]['launches']['fused_peaks'] / batches:g}, "
-        f"nms {sweeps[-1]['launches']['nms'] / batches:g}; confirmed tracks "
+        + f"; every (stream, frame) once; confirmed tracks "
         f"per stream {confirmed}; tracked faces a frame {faces_per_frame:.2f} "
         f"of {detected:.2f} detected; faces, tracks and "
         f"poses equal to process_batch + a fresh Sort, embeddings within "
@@ -1799,7 +1996,7 @@ def streams_phase(pipe, card):
             "plain_fps_median": plain_median,
             "ratio": fps_median / plain_median,
             "track_ms_per_batch": track_ms, "batches": batches,
-            "launches": sweeps[-1]["launches"], "confirmed_tracks": confirmed,
+            "confirmed_tracks": confirmed,
             "tracked_faces_per_frame": faces_per_frame,
             "detected_faces_per_frame": detected,
             "embedding_err_vs_batch": emb_err}
@@ -2606,16 +2803,15 @@ def observability_phase(params, batches, card):
     ``start_trace``, TRACED_BATCHES batches of a warm pipeline at
     bench.py's configuration each inside ``trace("pipeline_batch")``,
     ``stop_trace``. The written ``*.pt.trace.json`` must hold the region
-    and each of the four kernels, and the global timer must count the
-    region once a batch. A second ``start_trace`` while one runs must
+    and each of the four kernels, replayed from the pipeline's CUDA graphs,
+    2 launches of each kernel pair a batch, and the global timer must count
+    the region once a batch. A second ``start_trace`` while one runs must
     raise."""
     import shutil
 
     import torch
 
     from terran_tpu_torch.face import Detection
-    from terran_tpu_torch.ops import fused_peaks as fp
-    from terran_tpu_torch.ops import nms
     from terran_tpu_torch.pipeline import PerceptionPipeline
     from terran_tpu_torch.runtime import (
         Policy, available_devices, default_policy, platform,
@@ -2658,8 +2854,6 @@ def observability_phase(params, batches, card):
     timer = global_timer()
     counted = timer.counts.get("pipeline_batch", 0)
     timed = timer.times.get("pipeline_batch", 0.0)
-    fp.find_peaks_fused.launches = 0
-    nms.suppress.launches = 0
     traced_ms = []
     start_trace(TRACE_DIR)
     for batch in batches:
@@ -2676,11 +2870,6 @@ def observability_phase(params, batches, card):
     else:
         raise AssertionError("a second start_trace did not raise")
     stop_trace()
-    launches = {"fused_peaks": fp.find_peaks_fused.launches,
-                "nms": 2 * nms.suppress.launches}
-    if launches != dict.fromkeys(launches, 2 * len(batches)):
-        raise AssertionError(f"the traced batches launched {launches}, "
-                             "expected 2 of each kernel a batch")
     regions = timer.counts["pipeline_batch"] - counted
     region_ms = 1e3 * (timer.times["pipeline_batch"] - timed)
     if regions != len(batches):
@@ -2709,6 +2898,13 @@ def observability_phase(params, batches, card):
         raise AssertionError(f"the trace {path.name} holds "
                              f"{annotated} pipeline_batch regions and no "
                              f"event of {missing}")
+    # The warm pipeline replays CUDA graphs, which the kernels' Python
+    # counters do not see: the launches are the trace's kernel records.
+    launches = {"fused_peaks": (kernels["scan_kernel"]["events"]
+                                + kernels["merge_kernel"]["events"]),
+                "nms": (kernels["mask_kernel"]["events"]
+                        + kernels["sweep_kernel"]["events"])}
+    check_launches(launches, len(batches), "the traced batches")
     result = {
         "platform": platform(), "available_devices": [str(d) for d in devices],
         "float32_policy_weights": sorted(str(w) for w in weights),
@@ -2978,11 +3174,12 @@ def main():
         "pose": batch_ms, "detection": det_ms, "recognition": rec_ms})
     # This slice's main path: the same pipeline with both int8 trunks,
     # right after the native one.
+    # The pipeline's CUDA graphs against its eager launches.
+    graphs = graphs_phase(pipe_params, card)
     pipe_int8 = pipeline_int8_phase(pipe_params, batches, card, pipe)
     # This slice's main path: concurrent streams with tracking through
     # the warm pipeline.
     streams = streams_phase(warm_pipe, card)
-    del warm_pipe
     # The same path under the 'host' transfer plan as bench.py runs it,
     # and with the exact chain (the numpy warp) whatever is installed;
     # then host assembly.
@@ -2994,7 +3191,6 @@ def main():
     scaleout = scaleout_phase(pipe_params, rf_params, batches, model_boxes,
                               dev, card)
     traced_batches = batches[:TRACED_BATCHES]
-    del batches
     assembly = assembly_phase(card)
     tiled = tiled_phase(rf_params, dev, card)
     no_landmarks = recognition_no_landmarks_phase(arc_params, dev, card)
@@ -3096,6 +3292,32 @@ def main():
                                  "sweep_kernel once each")
         nms_kernel_ms[k] = dict(names, total=total)
 
+    # Both kernels on every batch of the warm pipeline's stream and of the
+    # concurrent streams, from the profiler's kernel records of one sweep
+    # each like the timed ones (the kernels' Python counters see no
+    # replayed graph), every program call a replay.
+    from terran_tpu_torch.io.streams import MultiStreamPerception
+
+    for what, fields, sweep in (
+            ("the pipeline", pipe, lambda: list(warm_pipe.process_stream(
+                batches, depth=PIPE_DEPTH))),
+            ("streams", streams, lambda: list(MultiStreamPerception(
+                warm_pipe, stream_sources(), batch_size=BATCH,
+                track=True)))):
+        calls, since = dict(warm_pipe.graph_calls), dispatched(warm_pipe)
+        fields["launches"] = kernel_launches(sweep)
+        # kernel_launches runs the sweep three times, one under the record.
+        check_replayed(warm_pipe, calls, 3 * fields["batches"], since, what)
+        check_launches(fields["launches"], fields["batches"], what)
+    log(f"kernel launches per batch, profiler records of one sweep "
+        f"({card}): pipeline "
+        + ", ".join(f"{k} {v / pipe['batches']:g}"
+                    for k, v in pipe["launches"].items())
+        + "; streams "
+        + ", ".join(f"{k} {v / streams['batches']:g}"
+                    for k, v in streams["launches"].items()))
+    del warm_pipe, batches
+
     # The package's runtime and tracing names, last: a trace of the warm
     # pipeline through start_trace/stop_trace.
     observability = observability_phase(pipe_params, traced_batches, card)
@@ -3108,6 +3330,7 @@ def main():
         "launches_per_batch": {name: count / pipe["batches"] for name, count
                                in pipe["launches"].items()},
         "warmup_programs": pipe["warmup_programs"],
+        "graph_calls": pipe["graph_calls"],
         "escalations": pipe["escalations"], "card": card,
     }}))
     log(json.dumps({"pipeline_host": {
@@ -3160,6 +3383,7 @@ def main():
                           "the repository)",
         "card": card,
     }}))
+    log(json.dumps({"graphs": dict(graphs, card=card)}))
     log(json.dumps({"int8_convs": int8_convs}))
     log(json.dumps({"tiled": dict(tiled, card=card)}))
     log(json.dumps({"scaleout": dict(scaleout, card=card)}))

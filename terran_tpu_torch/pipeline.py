@@ -51,6 +51,12 @@ int8 trunks all-reduce each conv's activation scale over the mesh, so
 that a split batch quantises as the whole batch; every collective is
 issued from the calling thread, in one order on every rank.
 
+On a CUDA card without a mesh, under the 'device' plan and with no int8
+trunk (:func:`graphs_eligible`), ``warmup`` captures each device program
+it runs as a CUDA graph, at each shape and bucket, and a later call at
+that shape replays the graph in place of the program's eager launches
+(``graph_calls`` counts both kinds of call).
+
 ``limb_backend='matmul'`` (a TPU cost reformulation of the gather form)
 raises ``NotImplementedError``.
 The JAX class's windowed and grouped-slab embed warps, also TPU cost
@@ -155,6 +161,65 @@ def _load(family, params, dtype, device, precision="native"):
             model.embed.to(torch.float32)  # it computes in float32
     model.load_state_dict(params, strict=True)
     return model.to(device).eval()
+
+
+def graphs_eligible(device, mesh, transfer_plan, embed_precision,
+                    pose_precision):
+    """Whether a pipeline with these settings captures its device programs
+    as CUDA graphs: on a CUDA card, without a mesh (whose programs run
+    NCCL collectives) and under the 'device' plan (the 'host' plan's embed
+    runs on a worker thread). A pipeline with an int8 trunk stays eager
+    for now: its conv ranges and ``_int_mm`` host ops are only recorded
+    on eager launches, until the trace pairs replayed kernels by
+    correlation id (ROADMAP Queue 4 item 7)."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and transfer_plan == "device"
+            and "int8" not in (embed_precision, pose_precision))
+
+
+def _signature(args):
+    """What a captured graph's inputs must match: each tensor's shape,
+    dtype and device."""
+    return tuple((tuple(a.shape), a.dtype, a.device) for a in args)
+
+
+def _map_outputs(fn, out):
+    """``fn`` over a program's outputs: a tensor, a tuple or a dict."""
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, dict):
+        return {key: fn(value) for key, value in out.items()}
+    return tuple(fn(value) for value in out)
+
+
+class _Graph:
+    """A device program captured once as a CUDA graph over static copies
+    of its inputs. A call copies its inputs into those buffers, replays
+    the graph and returns copies of its outputs, all on the current
+    stream, so that nothing the caller keeps aliases a buffer that a later
+    replay overwrites (``process_stream`` reads a batch's PAF after two
+    later batches' pose graphs have run)."""
+
+    def __init__(self, fn, args):
+        self.inputs = tuple(a.clone() for a in args)
+        # One eager run on the capture stream first, as torch.cuda.graph's
+        # documentation asks, then the capture; the caller's stream waits
+        # for both.
+        stream = torch.cuda.Stream(self.inputs[0].device)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(*self.inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.outputs = fn(*self.inputs)
+        torch.cuda.current_stream().wait_stream(stream)
+
+    def __call__(self, *args):
+        for buffer, arg in zip(self.inputs, args):
+            buffer.copy_(arg)
+        self.graph.replay()
+        return _map_outputs(torch.Tensor.clone, self.outputs)
 
 
 class _Fetch:
@@ -320,10 +385,14 @@ class PerceptionPipeline:
             else max_escalations
         )
         self.escalations = {"detect": 0, "pose": 0, "embed": 0}
+        # Device-program calls that replayed a captured CUDA graph, and
+        # those that ran the program's eager launches.
+        self.graph_calls = {"replayed": 0, "eager": 0}
         # Host->device upload bytes of every put_frames / _put_batch call.
-        # The stream's uploader thread and the main loop both add to it.
+        # The stream's uploader thread and the main loop both add to it,
+        # and the 'host' plan's embed worker counts its program calls.
         self.upload_bytes = 0
-        self._upload_bytes_lock = threading.Lock()
+        self._counts_lock = threading.Lock()
 
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
@@ -390,6 +459,9 @@ class PerceptionPipeline:
         self._warp_embed_fns = {}
         self._pose_detect_fns = {}
         self._limb_fns = {}
+        # Captured graphs of those programs by (program, input signature,
+        # thresholds), made by warmup where graphs_eligible says so.
+        self._graphs = {}
         # The 'host' plan's embed worker, started at first use.
         self._embed_pool_obj = None
         self._embed_pool_finalizer = None
@@ -591,6 +663,31 @@ class PerceptionPipeline:
                 return b
         return cap
 
+    def _graph_key(self, fn, args):
+        """A captured graph's key: the program, its inputs' signature and
+        what the eager programs read from the pipeline on every call, which
+        a graph holds at its value when captured."""
+        return (fn, _signature(args), self.threshold,
+                self.keypoint_threshold, self.thresh_midpoint,
+                self.use_fused_peaks)
+
+    def _program(self, fn, *args):
+        """Call the cached device program ``fn`` on ``args``: a replay of
+        its captured graph where warmup captured one at these inputs'
+        signature and the pipeline's current thresholds, else its eager
+        launches. Counted in ``graph_calls``,
+        and as a ``graph_replay`` or ``graph_eager`` record with a timer
+        attached."""
+        graph = (self._graphs.get(self._graph_key(fn, args)) if self._graphs
+                 else None)
+        replay = graph is not None
+        with self._counts_lock:
+            self.graph_calls["replayed" if replay else "eager"] += 1
+        if self.timer is not None:
+            self.timer.record("graph_replay" if replay else "graph_eager",
+                              0.0, 1)
+        return graph(*args) if replay else fn(*args)
+
     # ------------------------------------------------------------------
     # Mesh: this rank's rows, gathered results
     # ------------------------------------------------------------------
@@ -631,8 +728,13 @@ class PerceptionPipeline:
         and its embed program is the crops+mask embed at every bucket.
         Under a mesh every rank calls it: it runs this rank's rows of the
         batch padded to the mesh size, and one gather brings up the
-        group's communicator. Returns the number of device programs
-        run."""
+        group's communicator. Where :func:`graphs_eligible` allows, each
+        program run is then captured as a CUDA graph at its inputs'
+        signature and the settings it reads on every call (the thresholds,
+        the peak kernel's switch); a signature captured before is kept. A
+        call after one of those settings has changed runs eager until the
+        next ``warmup`` captures at the new value. Returns the number of
+        device programs run."""
         if self.device.type == "cuda":
             from terran_tpu_torch.ops import fused_peaks, nms
             from terran_tpu_torch.utils.cuda_build import load_libraries
@@ -646,13 +748,11 @@ class PerceptionPipeline:
         frames_shape = (batch, height, width, 3)
         hostprep = self.transfer_plan == "host"
         with_pose = self.with_pose and self.pose_model is not None
-        count = 0
+        runs = []
 
         def run(program, *args):
-            nonlocal count
-            out = program(*args)
-            count += 1
-            return out
+            runs.append((program, args))
+            return program(*args)
 
         if hostprep:
             zeros = np.zeros(frames_shape, np.uint8)
@@ -705,9 +805,15 @@ class PerceptionPipeline:
                                 (batch, NUM_PARTS, kb, 3), np.float32)))
             else:
                 run(self._pose_fn(height, width), frames)
+        if graphs_eligible(self.device, self.mesh, self.transfer_plan,
+                           self.embed_precision, self.pose_precision):
+            for program, args in runs:
+                key = self._graph_key(program, args)
+                if key not in self._graphs:
+                    self._graphs[key] = _Graph(program, args)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return count
+        return len(runs)
 
     def put_frames(self, frames):
         """Single host->device upload of a frame batch. Tensors already on
@@ -718,7 +824,7 @@ class PerceptionPipeline:
         if isinstance(frames, torch.Tensor) and frames.device == self.device:
             return frames
         src = torch.as_tensor(np.asarray(frames))
-        with self._upload_bytes_lock:
+        with self._counts_lock:
             self.upload_bytes += src.nbytes
         if self._upload_stream is None:
             return src.to(self.device, copy=True)
@@ -739,7 +845,7 @@ class PerceptionPipeline:
         """Upload a small host-built plan array on the current stream,
         through pinned memory so the copy does not wait for the card."""
         array = np.asarray(array)
-        with self._upload_bytes_lock:
+        with self._counts_lock:
             self.upload_bytes += array.nbytes
         src = torch.from_numpy(np.ascontiguousarray(array))
         if self.device.type == "cuda":
@@ -842,10 +948,10 @@ class PerceptionPipeline:
             full_h, full_w = frames_dev.shape[1:3]
         step = self._perception_fn(full_h, full_w, top_k,
                                    pre_resized=pre_shape is not None)
-        out = dict(step(frames_dev))
+        out = dict(self._program(step, frames_dev))
         if "crops" in out:
-            out["emb_packed"] = self._embed_fn()(
-                out.pop("crops"), out.pop("emb_mask_dev"))
+            out["emb_packed"] = self._program(
+                self._embed_fn(), out.pop("crops"), out.pop("emb_mask_dev"))
         return {key: self._fetch(value) for key, value in out.items()}
 
     def process_batch(self, frames):
@@ -934,9 +1040,9 @@ class PerceptionPipeline:
             )
             if self.limb_dispatch == "adaptive":
                 def repose(max_peaks):
-                    peaks, paf = self._pose_detect_fn(
+                    peaks, paf = self._program(self._pose_detect_fn(
                         full_h, full_w, max_peaks, pre_resized=hostprep,
-                    )(pose_in)
+                    ), pose_in)
                     return self._fetch(peaks), paf
 
                 with stage("pose_dispatch", items=n):
@@ -945,8 +1051,8 @@ class PerceptionPipeline:
             else:
                 with stage("pose_dispatch", items=n):
                     pose_out = tuple(
-                        self._fetch(v) for v in
-                        self._pose_fn(full_h, full_w)(frames_dev)
+                        self._fetch(v) for v in self._program(
+                            self._pose_fn(full_h, full_w), frames_dev)
                     )
 
         out["_batch_id"] = bid
@@ -1105,7 +1211,7 @@ class PerceptionPipeline:
                     (coords, scores, valid, reg, accept,
                      pose_overflow) = unpack_pose_outputs(
                         *(self._fetch(v).numpy()
-                          for v in decode(frames_dev)))
+                          for v in self._program(decode, frames_dev)))
             out["pose_overflow"] = pose_overflow[:n].any(axis=-1)
 
         if state["pose"] is not None:
@@ -1157,8 +1263,8 @@ class PerceptionPipeline:
             ],
             axis=-1,
         )
-        limbs = self._limb_fn(kb, paf_dev.shape)(
-            paf_dev, self._put_batch(self._rows(cv)))
+        limbs = self._program(self._limb_fn(kb, paf_dev.shape), paf_dev,
+                              self._put_batch(self._rows(cv)))
         return kb, self._fetch(limbs)
 
     def _plan_adaptive_embed(self, out, b):
@@ -1203,8 +1309,8 @@ class PerceptionPipeline:
         if plan is None:
             return None
         packed, k = plan
-        emb = self._warp_embed_fn(k, frames_dev.shape)(
-            frames_dev, self._put_batch(self._rows(packed)))
+        emb = self._program(self._warp_embed_fn(k, frames_dev.shape),
+                            frames_dev, self._put_batch(self._rows(packed)))
         return self._fetch(emb)
 
     @_device_work
@@ -1242,7 +1348,7 @@ class PerceptionPipeline:
             inputs = (self._put_batch(crops), self._put_batch(mask))
             if self.mesh is not None:
                 return inputs
-            return _Fetch(self._embed_fn()(*inputs))
+            return _Fetch(self._program(self._embed_fn(), *inputs))
 
     def _collect_adaptive_embed(self, plan, n):
         """Fetch the adaptive embed result and place it in the
@@ -1252,7 +1358,7 @@ class PerceptionPipeline:
         if isinstance(plan, Future):
             plan = plan.result()
         if isinstance(plan, tuple):  # a mesh's uploaded (crops, mask)
-            plan = self._fetch(self._embed_fn()(*plan))
+            plan = self._fetch(self._program(self._embed_fn(), *plan))
         if plan is None:
             return (
                 np.zeros((n, self.max_faces, EMBEDDING_DIM), np.float32),

@@ -56,12 +56,14 @@ def check_precision(name, value):
     return value
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def device_constant(values, dtype, device):
     """The nested tuple ``values`` as a ``dtype`` tensor on ``device``, made
-    once per (values, dtype, device). A copy from host memory to the card
-    waits for everything queued on the stream, so ops that the pipeline
-    enqueues ahead of the card take their constant tables from here."""
+    once per (values, dtype, device) and kept for the process: a CUDA graph
+    captured over it reads it at its address. A copy from host memory to
+    the card waits for everything queued on the stream, so ops that the
+    pipeline enqueues ahead of the card take their constant tables from
+    here."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
 

@@ -28,6 +28,7 @@ CPU's FaceResNet100 costs ~0.3 s a crop on one thread.
 import dataclasses
 import sys
 import threading
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,7 +52,8 @@ from terran_tpu_torch.ops.warp import (
     ARCFACE_TEMPLATE, alignment_matrices, alignment_matrices_torch,
     warp_affine_batch, warp_affine_frames,
 )
-from terran_tpu_torch.pipeline import PerceptionPipeline
+from terran_tpu_torch import pipeline as pipeline_module
+from terran_tpu_torch.pipeline import PerceptionPipeline, graphs_eligible
 from terran_tpu_torch.utils.convert import (
     convert_arcface, convert_openpose, convert_retinaface,
 )
@@ -515,3 +517,175 @@ def test_upload_bytes_counts_every_concurrent_upload(params):
     finally:
         sys.setswitchinterval(interval)
     assert pipe.upload_bytes == 8 * 200 * chunk.nbytes
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: which pipelines capture, how calls are routed and counted
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("device,mesh,plan,embed,pose,expected", [
+    ("cuda", None, "device", "native", "native", True),
+    ("cuda:0", None, "device", "native", "native", True),
+    ("cuda", "a mesh", "device", "native", "native", False),
+    ("cuda", None, "host", "native", "native", False),
+    ("cuda", None, "device", "int8", "native", False),
+    ("cuda", None, "device", "native", "int8", False),
+    ("cpu", None, "device", "native", "native", False),
+])
+def test_graphs_eligible(device, mesh, plan, embed, pose, expected):
+    assert graphs_eligible(device, mesh, plan, embed, pose) is expected
+
+
+def program_keys(pipe):
+    return {name: set(getattr(pipe, name)) for name in (
+        "_step_fns", "_pose_fns", "_warp_embed_fns", "_pose_detect_fns",
+        "_limb_fns")}
+
+
+def test_graph_calls_count_eager_on_cpu(params):
+    pipe = make(params)
+    pipe.process_batch(frames_of(21))
+    # No warmup: each program built ran once, eagerly.
+    calls = sum(map(len, program_keys(pipe).values()))
+    assert calls >= 2
+    assert pipe.graph_calls == {"replayed": 0, "eager": calls}
+    assert pipe.warmup(batch=2, height=96, width=128) > 0
+    assert pipe._graphs == {}  # no card: nothing captured
+    assert pipe.graph_calls["eager"] == calls  # warmup's runs not counted
+
+
+def test_graph_records_only_with_a_timer(params):
+    pipe = make(params, with_embeddings=False)
+    pipe.process_batch(frames_of(22))
+    before = dict(pipe.graph_calls)
+    timer = pipe.timer = StageTimer()
+    pipe.process_batch(frames_of(23))
+    eager = pipe.graph_calls["eager"] - before["eager"]
+    assert eager >= 1 and pipe.graph_calls["replayed"] == 0
+    assert timer.counts["graph_eager"] == timer.items["graph_eager"] == eager
+    assert "graph_replay" not in timer.counts
+    pipe.timer = None
+    pipe.process_batch(frames_of(24))
+    assert timer.counts["graph_eager"] == eager
+
+
+def _flat(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return list(out.values()) if isinstance(out, dict) else list(out)
+
+
+class StandInGraph(pipeline_module._Graph):
+    """A captured graph's stand-in on the CPU: static input and output
+    buffers, and a replay that runs the program on the static inputs into
+    the static outputs, as a CUDA graph's replay does. Calls go through
+    the real ``_Graph.__call__``."""
+
+    def __init__(self, fn, args):
+        self.inputs = tuple(a.clone() for a in args)
+        self.outputs = fn(*self.inputs)
+
+        def replay():
+            for buffer, value in zip(_flat(self.outputs),
+                                     _flat(fn(*self.inputs))):
+                buffer.copy_(value)
+
+        self.graph = SimpleNamespace(replay=replay)
+
+
+@pytest.fixture
+def stand_in_graphs(monkeypatch):
+    monkeypatch.setattr(pipeline_module, "graphs_eligible",
+                        lambda *settings: True)
+    monkeypatch.setattr(pipeline_module, "_Graph", StandInGraph)
+
+
+def recorded_peak_tables(monkeypatch):
+    """The peak and limb tables the pipeline hands its pose assembly."""
+    tables = []
+    assemble = pipeline_module.assemble_humans
+
+    def recording(*args, **kwargs):
+        tables.append([np.array(a) for a in args])
+        return assemble(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline_module, "assemble_humans", recording)
+    return tables
+
+
+@pytest.mark.parametrize("dispatch", ["adaptive", "fused"])
+def test_replayed_programs_match_eager_launches(params, stand_in_graphs,
+                                                monkeypatch, dispatch):
+    """Warmup captures every program it runs, with its count and program
+    caches as an eager pipeline's; a depth-2 stream over distinct batches
+    then replays every call and yields what the eager closures yield, bit
+    for bit, peak and limb tables included: a batch's PAF is read after
+    two later batches' pose programs replayed."""
+    pipe = make(params, max_faces=2, embed_dispatch=dispatch,
+                limb_dispatch=dispatch)
+    pipe.embed_buckets = [1]
+    pipe.peak_buckets = [4]
+    for name, value in LOWERED_POSE_THRESHOLDS.items():
+        setattr(pipe, name, value)
+    plain = make(params, max_faces=2, embed_dispatch=dispatch,
+                 limb_dispatch=dispatch)
+    plain.embed_buckets, plain.peak_buckets = [1], [4]
+    count = pipe.warmup(batch=2, height=96, width=128)
+    assert count == plain.warmup(batch=2, height=96, width=128)
+    assert program_keys(pipe) == program_keys(plain)
+    assert len(pipe._graphs) == count
+    assert pipe.graph_calls == {"replayed": 0, "eager": 0}
+
+    batches = [frames_of(30 + i) for i in range(3)]
+    tables = recorded_peak_tables(monkeypatch)
+    got = list(pipe.process_stream(batches, depth=2))
+    replayed = pipe.graph_calls["replayed"]
+    assert replayed >= 2 * len(batches)
+    assert pipe.graph_calls["eager"] == 0
+    got_tables, tables[:] = list(tables), []
+    graphs, pipe._graphs = pipe._graphs, {}
+    expected = list(pipe.process_stream(batches, depth=2))
+    pipe._graphs = graphs
+    assert pipe.graph_calls == {"replayed": replayed, "eager": replayed}
+    for g, e in zip(got, expected):
+        assert_same_results(g, e)
+    assert len(got_tables) == len(tables) == 2 * len(batches)
+    for g, e in zip(got_tables, tables):
+        for a, b in zip(g, e):
+            np.testing.assert_array_equal(a, b)
+
+    pipe.process_batch(batches[0][:1])  # a short batch has no graph
+    assert pipe.graph_calls["replayed"] == replayed
+    assert pipe.graph_calls["eager"] > replayed
+
+
+@pytest.mark.parametrize("name,value", [("threshold", 0.9),
+                                        ("keypoint_threshold", 0.1),
+                                        ("thresh_midpoint", 0.1)])
+def test_threshold_changed_after_warmup_runs_eager(params, stand_in_graphs,
+                                                   name, value):
+    """A graph holds the thresholds its program read when captured: once
+    one changes, calls run the eager closures, which read the new value,
+    equal to a pipeline built at it; the next warmup captures at it."""
+    pipe = make(params, max_faces=2)
+    plain = make(params, max_faces=2)
+    for p in (pipe, plain):
+        for key, lowered in LOWERED_POSE_THRESHOLDS.items():
+            setattr(p, key, lowered)
+    count = pipe.warmup(batch=2, height=96, width=128)
+    batch = frames_of(40)
+    pipe.process_batch(batch)
+    replayed = pipe.graph_calls["replayed"]
+    assert replayed >= 2 and pipe.graph_calls["eager"] == 0
+
+    setattr(pipe, name, value)
+    setattr(plain, name, value)
+    assert_same_results(pipe.process_batch(batch), plain.process_batch(batch))
+    eager = pipe.graph_calls["eager"]
+    assert pipe.graph_calls["replayed"] == replayed and eager >= 2
+
+    assert pipe.warmup(batch=2, height=96, width=128) == count
+    assert len(pipe._graphs) == 2 * count
+    assert_same_results(pipe.process_batch(batch), plain.process_batch(batch))
+    assert pipe.graph_calls["eager"] == eager
+    assert pipe.graph_calls["replayed"] > replayed
