@@ -54,7 +54,7 @@ def run(ctx):
             continue
         done.frames += b
         done.batches += 1
-        done.faces += int(np.asarray(out["embeddings_mask"]).sum())
+        done.faces += int(np.asarray(out.get("embeddings_mask", 0)).sum())
         ctx.tracer.step(t)
     ctx.tracer.close()
     ctx.window_closed(done.frames, done.faces)

@@ -10,6 +10,7 @@ from pathlib import Path
 
 import torch
 
+from harness import families
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = Path(__file__).resolve().parents[1]
@@ -36,6 +37,7 @@ class Cell:
         self.config = load_json(ROOT / self.config_entry["file"])
         self.mix = load_json(BENCH / "mixes" / f"{self.entry['traffic']}.json")
         self.limits = load_json(BENCH / "limits" / f"{workload}.json")
+        self.families = families.of(self.config)
         self.end_to_end = [m for m in spec["end_to_end"]
                            if workload in m.get("workloads", [workload])]
         self.per_layer = [m for m in spec["per_layer"]
@@ -57,26 +59,17 @@ def make_frames(seed, count, height, width, device, stream=0):
     return frames.cpu().numpy()
 
 
-def program_params(weights):
-    """The program's own state dicts, converted from the published format
-    by the program's converters."""
-    from terran_tpu_torch.utils.convert import (
-        convert_arcface, convert_openpose, convert_retinaface,
-    )
-
-    return (convert_retinaface(weights["retinaface"]),
-            convert_arcface(weights["arcface"]),
-            convert_openpose(weights["openpose"]))
-
-
-def build_pipeline(cell, weights, device):
-    """``PerceptionPipeline`` at the configuration's settings."""
-    from terran_tpu_torch.pipeline import PerceptionPipeline
-
+def pipeline_kwargs(cell, weights, device):
+    """``PerceptionPipeline``'s keywords at the configuration's settings:
+    no pose and no embeddings, then each family's converted weights with
+    its role switched on, then the ``"pipeline"`` settings."""
     c = cell.pipe_cfg
-    det, rec, pose = program_params(weights)
-    return PerceptionPipeline(
-        det_params=det, rec_params=rec, pose_params=pose,
+    kwargs = dict.fromkeys(families.SWITCHES.values(), False)
+    for role, fam in cell.families.items():
+        kwargs.update(fam.binding.pipeline_kwargs(weights[fam.name]))
+        if role in families.SWITCHES:
+            kwargs[families.SWITCHES[role]] = True
+    kwargs.update(
         det_short_side=c["det_short_side"],
         pose_short_side=c["pose_short_side"], threshold=c["threshold"],
         nms_threshold=c["nms_threshold"], top_k=c["top_k"],
@@ -87,6 +80,14 @@ def build_pipeline(cell, weights, device):
         transfer_plan=c["transfer_plan"],
         embed_precision=c["embed_precision"],
         pose_precision=c["pose_precision"], device=device)
+    return kwargs
+
+
+def build_pipeline(cell, weights, device):
+    """``PerceptionPipeline`` at the configuration's settings."""
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+
+    return PerceptionPipeline(**pipeline_kwargs(cell, weights, device))
 
 
 def warm_up(pipe, frames, depth):
@@ -134,11 +135,12 @@ class PeakRecorder:
 
 def outputs_of(peaks, out):
     """The compared outputs of one batch: the frames' detections and
-    embeddings from ``process_stream``'s result, and their peak tables
-    (None each where they were not recorded)."""
+    embeddings (where the pipeline embeds) from ``process_stream``'s
+    result, and their peak tables (None each where they were not
+    recorded)."""
     n = len(out["mask"])
-    keys = ("boxes", "landmarks", "scores", "mask", "embeddings",
-            "embeddings_mask")
+    keys = [key for key in ("boxes", "landmarks", "scores", "mask",
+                            "embeddings", "embeddings_mask") if key in out]
     return [{key: out[key][i] for key in keys}
             | {"peaks": None if peaks is None else peaks[i]}
             for i in range(n)]

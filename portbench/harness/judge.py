@@ -73,27 +73,36 @@ def _kth(values, k, floor):
 
 
 class Reference:
-    """The reference's view of frames under one configuration: float32
-    (``ops=FLOAT``) or the control's lower precision."""
+    """The reference's view of frames under one configuration and its
+    families (``harness/families.py``: {role: Family}): float32, or with
+    ``ops`` ({family: ops}) the control's lower precision. A role the
+    configuration lacks gives nothing: no heatmaps without a pose family,
+    no embeddings without a recognizer."""
 
-    def __init__(self, weights, cfg, ops=FLOAT, pose_ops=None,
-                 embed_ops=None):
-        self.w, self.cfg = weights, cfg
-        self.det_ops = ops
-        self.pose_ops = pose_ops or ops
-        self.embed_ops = embed_ops or ops
+    def __init__(self, weights, cfg, fams, ops=None):
+        self.w, self.cfg, self.fams = weights, cfg, fams
+        self.ops = ops or {}
+        self.pose = "pose" in fams
+        self.embeds = "recognizer" in fams
+
+    def _call(self, role, fn, *args):
+        fam = self.fams[role]
+        return getattr(fam.binding, fn)(self.w[fam.name], *args,
+                                        self.ops.get(fam.name, FLOAT))
 
     def detections(self, frames):
-        return ref.detect(self.w["retinaface"], frames,
-                          self.cfg["det_short_side"], self.det_ops)
+        return self._call("detector", "detect", frames,
+                          self.cfg["det_short_side"])
+
+    def anchors(self, height, width):
+        return self.fams["detector"].binding.anchors(height, width)
 
     def heatmaps(self, frames):
-        return ref.heatmaps(self.w["openpose"], frames,
-                            self.cfg["pose_short_side"], self.pose_ops)
+        return self._call("pose", "heatmaps", frames,
+                          self.cfg["pose_short_side"])
 
     def embed(self, frame, landmarks):
-        return ref.embed(self.w["arcface"], frame, landmarks,
-                         self.embed_ops)
+        return self._call("recognizer", "embed", frame, landmarks)
 
     def as_program(self, frames):
         """What the program's timed path would give for these frames, in
@@ -107,7 +116,7 @@ class Reference:
                              float("-inf"))
         top, order = torch.sort(masked, dim=1, descending=True, stable=True)
         top, order = top[:, :k], order[:, :k]
-        heat = self.heatmaps(frames)
+        heat = self.heatmaps(frames) if self.pose else None
         outs = []
         for i in range(n):
             b, l = boxes[i, order[i]], lmks[i, order[i]]
@@ -118,14 +127,17 @@ class Reference:
             out = {"boxes": coords[:, :4], "landmarks":
                    coords[:, 4:].reshape(-1, 5, 2), "scores":
                    top[i].cpu().numpy(), "mask": keep}
-            emb = np.zeros((faces, 512), np.float32)
-            slots = np.flatnonzero(keep[:faces])
-            if slots.size:
-                emb[slots] = self.embed(
-                    frames[i], out["landmarks"][slots].astype(np.float32)
-                ).cpu().numpy()
-            out["embeddings"], out["embeddings_mask"] = emb, keep[:faces]
-            out["peaks"] = self._peaks(heat[i])
+            if self.embeds:
+                width = self.fams["recognizer"].binding.EMBED_DIM
+                emb = np.zeros((faces, width), np.float32)
+                slots = np.flatnonzero(keep[:faces])
+                if slots.size:
+                    emb[slots] = self.embed(
+                        frames[i],
+                        out["landmarks"][slots].astype(np.float32)
+                    ).cpu().numpy()
+                out["embeddings"], out["embeddings_mask"] = emb, keep[:faces]
+            out["peaks"] = None if heat is None else self._peaks(heat[i])
             outs.append(out)
         return outs
 
@@ -160,13 +172,15 @@ def compare_frames(reference, frames, cands, numbers):
     """Fold the numbers of (N, H, W, 3) uint8 ``frames`` (a tensor on the
     reference's device) and their N candidate outputs into ``numbers``,
     a dict of running maxima. A candidate whose ``peaks`` is None (the
-    program's tables were not recorded) adds no peak number."""
+    program's tables were not recorded) adds no peak number; without a
+    pose family no frame does, and without a recognizer none adds
+    ``emb_cos_gap``."""
     cfg = reference.cfg
     n, h, w, _ = frames.shape
     dh, dw, det_scale = ref.resized_shape(h, w, cfg["det_short_side"])
     scores, boxes, lmks = reference.detections(frames)
-    heat = reference.heatmaps(frames)
-    anc = torch.from_numpy(ref.anchors(dh, dw)).to(frames.device)
+    heat = reference.heatmaps(frames) if reference.pose else None
+    anc = torch.from_numpy(reference.anchors(dh, dw)).to(frames.device)
     anchor_w = (anc[:, 2] - anc[:, 0] + 1.0) / det_scale
     centre = torch.stack([anc[:, 0] + 0.5 * (anc[:, 2] - anc[:, 0]),
                           anc[:, 1] + 0.5 * (anc[:, 3] - anc[:, 1])], -1)
@@ -174,9 +188,10 @@ def compare_frames(reference, frames, cands, numbers):
     for i, cand in enumerate(cands):
         gaps = _detection_gaps(cand, scores[i], boxes[i], lmks[i], det_scale,
                                anchor_w, centre, cfg)
-        gaps["emb_cos_gap"] = _embed_gap(reference, frames[i], cand,
-                                         cfg["max_faces"])
-        if cand.get("peaks") is not None:
+        if reference.embeds:
+            gaps["emb_cos_gap"] = _embed_gap(reference, frames[i], cand,
+                                             cfg["max_faces"])
+        if heat is not None and cand.get("peaks") is not None:
             gaps.update(_peak_gaps(heat[i], cand["peaks"], cfg))
         for name, value in gaps.items():
             numbers[name] = max(numbers.get(name, 0.0), value)

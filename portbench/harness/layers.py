@@ -2,7 +2,7 @@
 Each returns None where the run gave it nothing to read, and the harness
 then leaves the metric out of the result line."""
 
-from harness import bounds, flops
+from harness import bounds, families, flops
 from reference.pipeline import resized_shape
 
 ENQUEUE_STAGES = ("perception_step", "pose_dispatch", "embed_dispatch",
@@ -27,25 +27,27 @@ def device_idle_pct(ctx):
 
 
 def mfu(ctx):
-    """The least time the published peaks allow for the convolutions and
-    dense layers of the frames completed, over the time they took: both
-    outside the profiled spans."""
+    """The least time the published peaks allow for the convolutions,
+    dense layers and products of two activations of the frames
+    completed, over the time they took: both outside the profiled spans.
+    Each family's work is counted at its input, per frame or, for the
+    recognizer, per face embedded, and held to the peak rate of its
+    role's precision."""
     frames, faces = ctx.tracer.outside("frames"), ctx.tracer.outside("faces")
     seconds = ctx.tracer.outside_s()
     if not frames or ctx.faces is None or not seconds:
         return None
     c = ctx.cell.pipe_cfg
     h, w = ctx.cell.mix["frame"]
-    per = flops.frame_flops(h, w, c["det_short_side"], c["pose_short_side"])
-    rates = {"retinaface": bounds.PEAK_BF16_FLOPS,
-             "openpose": (bounds.PEAK_INT8_OPS if c["pose_precision"] == "int8"
-                          else bounds.PEAK_BF16_FLOPS),
-             "arcface": (bounds.PEAK_INT8_OPS if c["embed_precision"] == "int8"
-                         else bounds.PEAK_BF16_FLOPS)}
-    work = {"retinaface": per["retinaface"] * frames,
-            "openpose": per["openpose"] * frames,
-            "arcface": per["arcface"] * faces}
-    least = sum(work[f] / rates[f] for f in work)
+    fams = ctx.cell.families
+    per = flops.frame_flops(fams, h, w, c)
+    least = 0.0
+    for role, fam in fams.items():
+        setting = families.PRECISION.get(role)
+        rate = (bounds.PEAK_INT8_OPS if setting and c[setting] == "int8"
+                else bounds.PEAK_BF16_FLOPS)
+        count = faces if role == "recognizer" else frames
+        least += per[fam.name] * count / rate
     return 100.0 * least / seconds
 
 
@@ -58,14 +60,15 @@ def peaks_roofline(ctx):
     """``kernel_bound_ms`` of one batch's peak scan over the mean device ms
     of one ``scan_kernel`` plus one ``merge_kernel``."""
     ms = _pair_ms(ctx, "scan_kernel", "merge_kernel")
-    if not ms:
+    pose = ctx.cell.families.get("pose")
+    if not ms or pose is None:
         return None
     c = ctx.cell.pipe_cfg
     h, w = ctx.cell.mix["frame"]
     ph, pw, _ = resized_shape(h, w, c["pose_short_side"])
     hh, ww = ph // 8, pw // 8  # three 2x2 max pools
-    bound, _ = bounds.kernel_bound_ms(ctx.cell.mix["batch"] * 18, hh, ww,
-                                      c["max_peaks"])
+    bound, _ = bounds.kernel_bound_ms(
+        ctx.cell.mix["batch"] * pose.binding.PARTS, hh, ww, c["max_peaks"])
     return 100.0 * bound / ms
 
 

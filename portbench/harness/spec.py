@@ -1,7 +1,8 @@
 """Checks of ``BENCHMARK.json`` against the files it names, made before a
 run starts: every name and unit well formed, every cell's configuration,
 mix, driver, limits and per-layer metric present as a file of its own
-under the benchmark's folder."""
+under the benchmark's folder, and every configuration's families bound
+(``harness/families.py``) and given a control precision."""
 
 import re
 from pathlib import Path
@@ -13,6 +14,25 @@ UNIT = re.compile(r"[A-Za-z0-9_/%.\-]{1,16}$")
 def _name(value, what):
     if not isinstance(value, str) or not NAME.match(value):
         raise ValueError(f"bad {what} name {value!r}")
+
+
+def _families(entry, root, bench):
+    import json
+
+    from harness import families
+
+    with open(root / entry["file"]) as f:
+        config = json.load(f)
+    try:
+        for name in config["models"]:
+            _name(name, "family")
+        families.of(config, bench)
+    except ValueError as e:
+        raise ValueError(f"configuration {entry['name']}: {e}") from None
+    unset = [n for n in config["models"] if n not in config["control"]]
+    if unset:
+        raise ValueError(f"configuration {entry['name']}: no control "
+                         f"precision for {unset}")
 
 
 def validate(spec, bench, root):
@@ -27,6 +47,7 @@ def validate(spec, bench, root):
             _name(key, "reduced key")
         if not (root / c["file"]).is_file():
             raise ValueError(f"configuration file {c['file']} is missing")
+        _families(c, root, bench)
         configs[c["name"]] = c
     metrics = spec["end_to_end"] + spec["per_layer"]
     for m in metrics:

@@ -1,26 +1,33 @@
 """Random weights in the published checkpoints' key format, drawn on the
 device from the run's seed: one normal draw for all of a model's floats,
-then sliced and scaled per tensor (``reference/models.py::specs``).
+then sliced and scaled per tensor (each family binding's ``specs``).
 float32, the masters that the program converts and casts to the type it
 serves them in."""
 
+import zlib
+
 import torch
 
-from reference.models import specs
+from harness import families
 
-FAMILIES = ("retinaface", "arcface", "openpose")
+# The offsets of the first three families' seeds, kept so that their
+# draws stay those of every earlier run.
+LEGACY = {"retinaface": 0, "arcface": 1, "openpose": 2}
 
 
 def family_seed(seed, family):
     """A seed of its own for each model, so that one model's draw does not
-    depend on another's size."""
-    return (int(seed) * len(FAMILIES) + FAMILIES.index(family)) % (2 ** 63)
+    depend on another's size: a fixed hash of the family's name beside the
+    run's seed."""
+    if family in LEGACY:
+        return (int(seed) * len(LEGACY) + LEGACY[family]) % (2 ** 63)
+    return ((int(seed) << 32) + zlib.crc32(family.encode())) % (2 ** 63)
 
 
 def make_state_dict(family, seed, device):
     """{key: tensor} of ``family`` on ``device``, the same for the same
     seed."""
-    table = specs(family)
+    table = families.binding(family).specs()
     sizes = [torch.Size(shape).numel() for _, shape, init in table
              if init[0] != "zero_int"]
     gen = torch.Generator(device=device)
@@ -46,6 +53,6 @@ def make_state_dict(family, seed, device):
     return out
 
 
-def make_weights(seed, device):
-    """{family: state dict} of the three models."""
-    return {f: make_state_dict(f, seed, device) for f in FAMILIES}
+def make_weights(seed, device, names):
+    """{family: state dict} of the named families, drawn in their order."""
+    return {name: make_state_dict(name, seed, device) for name in names}

@@ -12,7 +12,8 @@ object, so that the same forward computes the float32 reference
 and the benchmark's operation count (``harness/flops.py``).
 
 Also here: the key names, shapes and initialisation of the random
-weights that ``harness/weights.py`` draws on the card (:func:`specs`).
+weights that ``harness/weights.py`` draws on the card (``*_specs``, each
+named by its family's binding under ``families/``).
 """
 
 import torch
@@ -20,7 +21,8 @@ import torch.nn.functional as F
 
 
 class Float:
-    """float32 convolutions and dense layers."""
+    """float32 convolutions, dense layers and products of two
+    activations."""
 
     def conv(self, x, w, b, stride=1, pad=0, groups=1):
         return F.conv2d(x, w, b, stride=stride, padding=pad, groups=groups)
@@ -28,17 +30,22 @@ class Float:
     def linear(self, x, w, b):
         return F.linear(x, w, b)
 
+    def matmul(self, a, b):
+        return a @ b
+
 
 FLOAT = Float()
 
 
 class Quantized(Float):
-    """Convolutions and dense layers on a lower-precision number format,
+    """Convolutions, dense layers and products of two activations on a
+    lower-precision number format,
     the products and sums in float64 so that only the rounding of their
     operands departs from :data:`FLOAT`: ``"int8"`` or ``"int4"``
     (symmetric integers, the largest magnitude over ``2**(bits-1) - 1``)
     or ``"fp8"`` (e4m3, the largest magnitude onto 448), with one scale
-    per output channel for weights and one per tensor for activations."""
+    per output channel for weights and one per tensor for activations
+    (both operands of a product of two activations)."""
 
     LEVELS = {"int8": 127.0, "int4": 7.0, "fp8": 448.0}
 
@@ -72,6 +79,12 @@ class Quantized(Float):
         y = (xq.double() @ wq.double().t()) * (xs.double()
                                               * ws.double().reshape(1, -1))
         return (y + b.double()).float()
+
+    def matmul(self, a, b):
+        aq, a_s = self._q(a, None)
+        bq, b_s = self._q(b, None)
+        return ((aq.double() @ bq.double())
+                * (a_s.double() * b_s.double())).float()
 
 
 def _bn(x, sd, name, eps):
@@ -389,11 +402,3 @@ def openpose_specs():
                           f"_L{branch}", out_c, in_c, k)
     return s
 
-
-SPECS = {"retinaface": retinaface_specs, "arcface": arcface_specs,
-         "openpose": openpose_specs}
-
-
-def specs(family):
-    """[(key, shape, init)] of ``family``'s published checkpoint."""
-    return SPECS[family]()

@@ -4,8 +4,9 @@
         --trace <0|1>
 
 from the root of a checkout. Reads the cell from ``BENCHMARK.json``,
-finds its configuration, mix, driver, limits and per-layer metrics by
-name under ``portbench/``, builds the program from the seed, measures
+finds its configuration, the bindings of the model families it names,
+its mix, driver, limits and per-layer metrics by name under
+``portbench/``, builds the program from the seed, measures
 for ``--seconds`` seconds, compares what the timed path produced with
 the plain reference, and prints one JSON line last on standard output.
 ``--trace 0`` reports the cell's end-to-end metrics, ``--trace 1`` its
@@ -118,8 +119,9 @@ class Context:
         from harness import cell as cellmod
         from harness.weights import make_weights
 
-        self.weights = make_weights(self.cell.config["weights_seed"],
-                                    self.device)
+        config = self.cell.config
+        self.weights = make_weights(config["weights_seed"], self.device,
+                                    config["models"])
         return cellmod.build_pipeline(self.cell, self.weights, self.device)
 
     def setup_done(self, pipe):
@@ -167,11 +169,12 @@ def judge(ctx, result, control):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dict(ctx.cell.pipe_cfg)
-    reference = J.Reference(ctx.weights, cfg)
+    fams = ctx.cell.families
+    reference = J.Reference(ctx.weights, cfg, fams)
     kinds = ctx.cell.config["control"]
-    ctl = J.Reference(ctx.weights, cfg, ops=Quantized(kinds["retinaface"]),
-                      pose_ops=Quantized(kinds["openpose"]),
-                      embed_ops=Quantized(kinds["arcface"]))
+    ctl = J.Reference(ctx.weights, cfg, fams,
+                      ops={f.name: Quantized(kinds[f.name])
+                           for f in fams.values()})
     numbers = {}
     with torch.inference_mode():
         for frames, cands in result["items"]:

@@ -41,12 +41,15 @@ def load(path):
 @pytest.fixture
 def tiny(tmp_path, monkeypatch):
     """A copy of the benchmark under ``tmp_path`` whose configurations and
-    mixes are cut to the tiny sizes, with the run's module pointed at it
-    and the card check replaced by the CPU. Returns (run module, spec)."""
+    mixes are cut to the tiny sizes, with the run's module and the family
+    bindings pointed at it (its ``reference/`` searched after the
+    benchmark's own, for the files a new family adds) and the card check
+    replaced by the CPU. Returns (run module, spec)."""
     import torch
 
     import run
     from harness import cell as cellmod
+    from harness import families
 
     root = tmp_path / "checkout"
     bench = root / "portbench"
@@ -68,6 +71,8 @@ def tiny(tmp_path, monkeypatch):
     monkeypatch.setattr(cellmod, "BENCH", bench)
     monkeypatch.setattr(cellmod, "ROOT", root)
     monkeypatch.setattr(run, "BENCH", bench)
+    monkeypatch.setattr(families, "BENCH", bench)
+    monkeypatch.setattr(sys, "path", sys.path + [str(bench)])
     monkeypatch.setattr(run, "card", lambda cell: torch.device("cpu"))
     return run, spec
 

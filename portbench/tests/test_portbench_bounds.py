@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import ROOT
+from conftest import ROOT, load
 from harness import bounds, flops
 
 
@@ -75,9 +75,42 @@ def test_flops_match_the_flop_counter_on_the_programs_models(h, w):
             FaceResNet100().eval(), torch.zeros(1, 112, 112, 3))
 
 
-def test_frame_flops_at_the_cells_sizes():
-    per = flops.frame_flops(1080, 1920, 416, 184)
+# Operations of one input of each family at the committed cells' sizes
+# (1080 x 1920 frames at detection side 416 and pose side 184), as the
+# harness counted them before families were found by name.
+PARENT_FLOPS = {"retinaface": ((416, 739), 1489649408),
+                "openpose": ((184, 327), 118614914048),
+                "arcface": ((112, 112), 24179212288)}
+
+
+@pytest.mark.parametrize("family", sorted(PARENT_FLOPS))
+def test_model_flops_equal_the_counts_recorded_before_families(family):
+    size, count = PARENT_FLOPS[family]
+    assert flops.model_flops(family, *size) == count
+
+
+@pytest.mark.parametrize("workload", ["bf16-offline-1080p",
+                                      "int8-offline-1080p",
+                                      "bf16-cameras-1080p"])
+def test_frame_flops_at_the_cells_sizes(workload):
+    from harness.cell import Cell
+
+    cell = Cell(workload, load(ROOT / "BENCHMARK.json"))
+    h, w = cell.mix["frame"]
+    per = flops.frame_flops(cell.families, h, w, cell.pipe_cfg)
     # 416 x 739 for detection, 184 x 327 for pose, 112 x 112 a face.
-    assert per["retinaface"] == flops.model_flops("retinaface", 416, 739)
-    assert per["openpose"] == flops.model_flops("openpose", 184, 327)
+    assert per == {f: c for f, (_, c) in PARENT_FLOPS.items()}
     assert per["arcface"] == pytest.approx(24.18e9, rel=1e-3)
+
+
+def test_the_count_takes_every_leading_dimension_and_products():
+    ops = flops._Counting()
+    x = torch.empty((5, 144, 768), device="meta")
+    y = ops.linear(x, torch.empty((96, 768), device="meta"),
+                   torch.empty((96,), device="meta"))
+    assert ops.flops == 2 * 5 * 144 * 768 * 96
+    q = y.reshape(5, 144, 8, 12).transpose(1, 2)  # (5, 8, 144, 12)
+    ops.flops = 0
+    scores = ops.matmul(q, q.transpose(-1, -2))
+    assert tuple(scores.shape) == (5, 8, 144, 144)
+    assert ops.flops == 2 * (5 * 8) * 144 * 12 * 144
