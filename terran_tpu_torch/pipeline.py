@@ -34,8 +34,10 @@ is enqueued: the host decisions (overflow, face and peak counts) run in
 a second stream, from pinned staging. ``process_stream`` dispatches batch
 *i+1* before batch *i*'s host stages run, as the JAX class does.
 
-``embed_precision='int8'`` and ``pose_precision='int8'`` (opt-in, off by
-default) run FaceResNet100 and OpenPose with int8 convs
+``recognizer='vit_l'`` embeds with the ViT-L of insightface's
+``arcface_torch`` (``models/vit.py``) in FaceResNet100's place, through the
+same programs. ``embed_precision='int8'`` and ``pose_precision='int8'``
+(opt-in, off by default) run FaceResNet100 and OpenPose with int8 convs
 (``models/quant.py``), quantised from the float32 weights before the
 other leaves are cast to the compute dtype.
 
@@ -92,6 +94,7 @@ from terran_tpu_torch.models.quant import reduce_activation_scales
 from terran_tpu_torch.models.retinaface import (
     RetinaFace, make_detect_fn, unpack_detections,
 )
+from terran_tpu_torch.models.vit import ViTRecognizer
 from terran_tpu_torch.ops.fused_peaks import fused_peaks_enabled
 from terran_tpu_torch.ops.pose_decode import (
     NUM_LIMBS, NUM_PARTS, forward_and_find_peaks, limb_scores, pack_peaks,
@@ -136,7 +139,10 @@ def _buckets(setting):
 
 
 _MODELS = {"retinaface": RetinaFace, "arcface": FaceResNet100,
-           "openpose": BodyPoseModel}
+           "openpose": BodyPoseModel, "vit_l": ViTRecognizer}
+# The recognizers a pipeline can run, by family: FaceResNet100 (ArcFace's
+# LResNet100E-IR) or the ViT of insightface's arcface_torch.
+RECOGNIZERS = ("arcface", "vit_l")
 _INT8_MODELS = {"arcface": (Int8FaceResNet100, quantize_arcface),
                 "openpose": (Int8BodyPoseModel, quantize_openpose)}
 
@@ -156,7 +162,11 @@ def _load(family, params, dtype, device, precision="native"):
         params = cast_params_for_compute(
             params, dtype, keep_f32=PARAMS_KEEP_F32[family]
         )
-        model = _MODELS[family]().to(dtype=dtype)
+        model_cls = _MODELS[family]
+        if family == "vit_l":  # sized by its weights, built in dtype
+            model = model_cls.from_state_dict(params, dtype)
+        else:
+            model = model_cls().to(dtype=dtype)
         if family == "arcface":
             model.embed.to(torch.float32)  # it computes in float32
     model.load_state_dict(params, strict=True)
@@ -222,13 +232,46 @@ class _Graph:
         return _map_outputs(torch.Tensor.clone, self.outputs)
 
 
+class _DeviceSpan:
+    """The device time of the work enqueued on the current stream between
+    this object's making and :meth:`stop`: a CUDA event pair on a card,
+    recorded around a program's call and so outside any graph that the
+    call replays; the host clock elsewhere, where each op runs as it is
+    called. ``slots``: what :meth:`stop` was given."""
+
+    def __init__(self, device):
+        if device.type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        else:
+            self._start, self._end = time.perf_counter(), None
+        self.slots = 0
+
+    def stop(self, slots):
+        self.slots = slots
+        if self._end is None:
+            self._end = time.perf_counter()
+        else:
+            self._end.record()
+
+    def seconds(self):
+        """The elapsed seconds; on a card, waits for the end event."""
+        if isinstance(self._end, float):
+            return self._end - self._start
+        self._end.synchronize()
+        return self._start.elapsed_time(self._end) / 1e3
+
+
 class _Fetch:
     """A device tensor's copy to the host, started when made: for a CUDA
     tensor a non-blocking copy into pinned memory on the current stream,
     and an event that :meth:`numpy` waits on before it reads (reading
-    before the event gives stale data with no error)."""
+    before the event gives stale data with no error). ``span``: the
+    :class:`_DeviceSpan` of the program that made the tensor, or None."""
 
-    def __init__(self, tensor):
+    def __init__(self, tensor, span=None):
+        self.span = span
         self.nbytes = tensor.nbytes
         if tensor.device.type == "cuda":
             self._host = torch.empty(tensor.shape, dtype=tensor.dtype,
@@ -267,6 +310,11 @@ class PerceptionPipeline:
     (``parallel.mesh.Mesh``) turns on data-parallel execution over the
     frame axis, on the mesh's device; every rank then makes the same
     calls with the same global batches, since each call runs collectives.
+    ``recognizer``: the family that embeds the faces, ``'arcface'``
+    (FaceResNet100, the default) or ``'vit_l'`` (the ViT of insightface's
+    ``arcface_torch``, :class:`~terran_tpu_torch.models.vit.ViTRecognizer`,
+    whose ``rec_params`` come from ``utils.convert.convert_vit_l``; it has
+    no int8 trunk and no checkpoint in the store).
     """
 
     def __init__(self, det_params=None, rec_params=None, pose_params=None,
@@ -277,7 +325,7 @@ class PerceptionPipeline:
                  embed_dispatch=None, limb_dispatch=None,
                  max_escalations=None, transfer_plan=None,
                  embed_precision=None, pose_precision=None,
-                 host_resize=None, device=None):
+                 host_resize=None, device=None, recognizer="arcface"):
         from terran_tpu_torch.checkpoint import load_checkpoint_params
         from terran_tpu_torch.config import get_config
 
@@ -292,6 +340,13 @@ class PerceptionPipeline:
             "pose_precision",
             cfg.pose_precision if pose_precision is None else pose_precision,
         )
+        if recognizer not in RECOGNIZERS:
+            raise ValueError(f"recognizer must be one of {RECOGNIZERS}, got "
+                             f"{recognizer!r}")
+        if recognizer == "vit_l" and self.embed_precision == "int8":
+            raise ValueError("embed_precision='int8' quantises FaceResNet100;"
+                             " the 'vit_l' recognizer has no int8 trunk")
+        self.recognizer = recognizer
         self.with_pose = with_pose
         self.with_embeddings = with_embeddings
         self.embed_dispatch = _resolve_dispatch(
@@ -408,6 +463,9 @@ class PerceptionPipeline:
                 "terran_tpu_torch.face.detection.RetinaFaceDetector"
             )
         if rec_params is None and with_embeddings:
+            if recognizer != "arcface":
+                raise ValueError(f"recognizer={recognizer!r} needs "
+                                 "rec_params: the store has no checkpoint")
             rec_params = load_checkpoint_params(
                 "terran_tpu_torch.face.recognition.ArcFaceRecognizer"
             )
@@ -426,7 +484,7 @@ class PerceptionPipeline:
         self.det_model = _load("retinaface", det_params, dtype, self.device)
         self.rec_model = (
             None if rec_params is None else
-            _load("arcface", rec_params, dtype, self.device,
+            _load(recognizer, rec_params, dtype, self.device,
                   self.embed_precision)
         )
         self.pose_model = (
@@ -709,9 +767,34 @@ class PerceptionPipeline:
             return tensor
         return all_gather_rows(tensor, self.mesh)
 
-    def _fetch(self, tensor):
-        """The host copy of a device output's global rows, started now."""
-        return _Fetch(self._gathered(tensor))
+    def _fetch(self, tensor, span=None):
+        """The host copy of a device output's global rows, started now,
+        carrying ``span``."""
+        return _Fetch(self._gathered(tensor), span)
+
+    def _run_embed(self, fn, *args):
+        """Call the embed program ``fn`` through :meth:`_program`. Returns
+        its packed (B, k, dim + 1) output and, with a timer attached, the
+        :class:`_DeviceSpan` of the call (None without one), which
+        :meth:`_record_embed` reads where the output is fetched."""
+        if self.timer is None:
+            return self._program(fn, *args), None
+        span = _DeviceSpan(self.device)
+        out = self._program(fn, *args)
+        span.stop(slots=out.shape[0] * out.shape[1])
+        return out, span
+
+    def _record_embed(self, fetch):
+        """With a timer attached, the records of the embed program whose
+        packed output ``fetch`` has reached the host: ``embed_device``, its
+        device seconds with items the faces embedded (the valid slots; the
+        global batch's under a mesh), and ``embed_slots``, items the slots
+        it computed, with no clock read."""
+        if self.timer is None or fetch.span is None:
+            return
+        faces = int((fetch.numpy()[..., -1] > 0.5).sum())
+        self.timer.record("embed_device", fetch.span.seconds(), faces)
+        self.timer.record("embed_slots", 0.0, fetch.span.slots)
 
     # ------------------------------------------------------------------
     # Host orchestration
@@ -949,10 +1032,12 @@ class PerceptionPipeline:
         step = self._perception_fn(full_h, full_w, top_k,
                                    pre_resized=pre_shape is not None)
         out = dict(self._program(step, frames_dev))
+        span = None
         if "crops" in out:
-            out["emb_packed"] = self._program(
+            out["emb_packed"], span = self._run_embed(
                 self._embed_fn(), out.pop("crops"), out.pop("emb_mask_dev"))
-        return {key: self._fetch(value) for key, value in out.items()}
+        return {key: self._fetch(value, span if key == "emb_packed" else None)
+                for key, value in out.items()}
 
     def process_batch(self, frames):
         """Run the full pipeline on an (N, H, W, 3) uint8 RGB batch.
@@ -1232,6 +1317,7 @@ class PerceptionPipeline:
             emb_dev = out.pop("emb_packed")
             with stage("embed_fetch", items=n, nbytes=emb_dev.nbytes):
                 emb = emb_dev.numpy()[:n]
+            self._record_embed(emb_dev)
             out["embeddings"] = emb[..., :-1]
             out["embeddings_mask"] = emb[..., -1] > 0.5
         elif state["adaptive_embed"]:
@@ -1309,9 +1395,9 @@ class PerceptionPipeline:
         if plan is None:
             return None
         packed, k = plan
-        emb = self._program(self._warp_embed_fn(k, frames_dev.shape),
-                            frames_dev, self._put_batch(self._rows(packed)))
-        return self._fetch(emb)
+        return self._fetch(*self._run_embed(
+            self._warp_embed_fn(k, frames_dev.shape), frames_dev,
+            self._put_batch(self._rows(packed))))
 
     @_device_work
     def _dispatch_adaptive_embed_host(self, out, frames, n, stage):
@@ -1348,7 +1434,7 @@ class PerceptionPipeline:
             inputs = (self._put_batch(crops), self._put_batch(mask))
             if self.mesh is not None:
                 return inputs
-            return _Fetch(self._program(self._embed_fn(), *inputs))
+            return _Fetch(*self._run_embed(self._embed_fn(), *inputs))
 
     def _collect_adaptive_embed(self, plan, n):
         """Fetch the adaptive embed result and place it in the
@@ -1358,13 +1444,14 @@ class PerceptionPipeline:
         if isinstance(plan, Future):
             plan = plan.result()
         if isinstance(plan, tuple):  # a mesh's uploaded (crops, mask)
-            plan = self._fetch(self._program(self._embed_fn(), *plan))
+            plan = self._fetch(*self._run_embed(self._embed_fn(), *plan))
         if plan is None:
             return (
                 np.zeros((n, self.max_faces, EMBEDDING_DIM), np.float32),
                 np.zeros((n, self.max_faces), bool),
             )
         emb = plan.numpy()[:n]
+        self._record_embed(plan)
         k = emb.shape[1]
         dim = emb.shape[-1] - 1  # packed as features + validity flag
         rows = max(self.max_faces, k)

@@ -111,7 +111,9 @@ def cast_params_for_compute(state_dict, compute_dtype, keep_f32=()):
     """Store float32 weights in the compute dtype once, at load time.
 
     ``keep_f32``: name prefixes whose weights stay float32 because their
-    layer computes in float32. Non-float entries pass through.
+    layer computes in float32, matched at the start of the key or after
+    any '.' in it (a module's name at any depth, as the JAX package
+    matches a path component). Non-float entries pass through.
     """
     if compute_dtype == torch.float32:
         return dict(state_dict)
@@ -119,7 +121,8 @@ def cast_params_for_compute(state_dict, compute_dtype, keep_f32=()):
         name: (
             value.to(compute_dtype)
             if value.dtype == torch.float32
-            and not any(name.startswith(k) for k in keep_f32)
+            and not any(name.startswith(k) or f".{k}" in name
+                        for k in keep_f32)
             else value
         )
         for name, value in state_dict.items()
@@ -127,8 +130,11 @@ def cast_params_for_compute(state_dict, compute_dtype, keep_f32=()):
 
 
 # Name prefixes that keep float32 storage per model family: ArcFace's
-# 'embed' projection computes in float32.
-PARAMS_KEEP_F32 = {"arcface": ("embed",), "retinaface": (), "openpose": ()}
+# 'embed' projection computes in float32; so do the ViT recognizer's
+# position table, LayerNorms (norm1, norm2, norm) and head BatchNorms
+# (bn1, bn2).
+PARAMS_KEEP_F32 = {"arcface": ("embed",), "retinaface": (), "openpose": (),
+                   "vit_l": ("pos_embed", "norm", "bn")}
 
 
 # ---------------------------------------------------------------------------

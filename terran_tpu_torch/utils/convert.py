@@ -3,7 +3,8 @@
 Two sources:
 
 - the reference's torch ``.pth`` state dicts (``convert_retinaface``,
-  ``convert_arcface``, ``convert_openpose``), whose OIHW conv weights this
+  ``convert_arcface``, ``convert_openpose``, and ``convert_vit_l`` for
+  insightface ``arcface_torch``'s ViT), whose OIHW conv weights this
   package keeps, with the folds of ``terran_tpu/utils/convert.py``:
   inference BatchNorm becomes a per-channel (scale, bias) affine, the
   RGB->BGR input flip goes into the first conv's input channels, and
@@ -282,6 +283,55 @@ def convert_openpose(state_dict):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The ViT recognizer of insightface's arcface_torch (backbones/vit.py)
+# ---------------------------------------------------------------------------
+
+VIT_BLOCK_LAYERS = (("norm1", "norm1"), ("qkv", "attn.qkv"),
+                    ("proj", "attn.proj"), ("norm2", "norm2"),
+                    ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+
+
+def convert_vit_l(state_dict):
+    """``arcface_torch`` ``VisionTransformer`` state dict -> the
+    :class:`~terran_tpu_torch.models.vit.ViTRecognizer` state dict, at any
+    depth and width: keys renamed, the patch conv's weight flattened to a
+    dense layer's, the training-only ``mask_token`` dropped. No arithmetic,
+    so weights on a card stay there and a ``meta`` state dict converts."""
+    m = Mapper(state_dict)
+
+    def take(key):
+        value = m.take(key)
+        value = (value.detach() if isinstance(value, torch.Tensor)
+                 else torch.as_tensor(np.asarray(value)))
+        return value.to(torch.float32) if value.is_floating_point() else value
+
+    w = take("patch_embed.proj.weight")
+    out = {"patch_embed.weight": w.reshape(w.shape[0], -1),
+           "patch_embed.bias": take("patch_embed.proj.bias"),
+           "pos_embed": take("pos_embed")}
+    if "mask_token" in m.sd:
+        m.take("mask_token")
+    depth = len({key.split(".")[1] for key in m.sd
+                 if key.startswith("blocks.")})
+    for i in range(depth):
+        for name, source in VIT_BLOCK_LAYERS:
+            for leaf in ("weight", "bias"):
+                key = f"blocks.{i}.{source}.{leaf}"
+                if key in m.sd:  # qkv has no bias
+                    out[f"blocks.{i}.{name}.{leaf}"] = take(key)
+    out["norm.weight"] = take("norm.weight")
+    out["norm.bias"] = take("norm.bias")
+    for linear, bn, name in (("feature.0", "feature.1", "1"),
+                             ("feature.2", "feature.3", "2")):
+        out[f"embed{name}.weight"] = take(f"{linear}.weight")
+        for leaf in ("weight", "bias", "running_mean", "running_var",
+                     "num_batches_tracked"):
+            out[f"bn{name}.{leaf}"] = take(f"{bn}.{leaf}")
+    m.assert_consumed()
+    return out
+
+
 def params_from_jax(params):
     """A ``terran_tpu`` params pytree (numpy leaves) -> this package's
     state dict, for every model family:
@@ -425,6 +475,7 @@ CONVERTERS = {
     "retinaface": convert_retinaface,
     "arcface": convert_arcface,
     "openpose": convert_openpose,
+    "vit_l": convert_vit_l,
 }
 
 

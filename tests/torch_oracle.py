@@ -364,3 +364,82 @@ def openpose_forward(sd, images_nchw):
 
         paf, heat = refine(1), refine(2)
     return paf, heat
+
+
+# ---------------------------------------------------------------------------
+# The ViT recognizer of insightface's arcface_torch (backbones/vit.py)
+# ---------------------------------------------------------------------------
+
+VIT_PATCH = 9
+
+
+def random_vit_state_dict(rng, depth=2, dim=64, mlp_dim=256, tokens=144,
+                          embedding_dim=512):
+    """A ``VisionTransformer`` state dict in arcface_torch's key names, at
+    any depth and width. Dense weights are fan-in scaled, so that the
+    residual stream and the flattened head keep their size; biases,
+    LayerNorm and BatchNorm parameters are drawn, so that each counts."""
+    def linear(o, i):
+        return rng.normal(scale=1.0 / np.sqrt(i), size=(o, i)).astype(
+            np.float32)
+
+    k = 3 * VIT_PATCH * VIT_PATCH
+    sd = {"patch_embed.proj.weight": rng.normal(
+              scale=1.0 / np.sqrt(k), size=(dim, 3, VIT_PATCH, VIT_PATCH)
+          ).astype(np.float32),
+          "patch_embed.proj.bias": _rand(rng, dim),
+          "pos_embed": _rand(rng, 1, tokens, dim),
+          "mask_token": _rand(rng, 1, 1, dim)}
+    for i in range(depth):
+        p = f"blocks.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{p}.{norm}.weight"] = 1.0 + _rand(rng, dim)
+            sd[f"{p}.{norm}.bias"] = _rand(rng, dim)
+        sd[f"{p}.attn.qkv.weight"] = linear(3 * dim, dim)
+        sd[f"{p}.attn.proj.weight"] = linear(dim, dim)
+        sd[f"{p}.attn.proj.bias"] = _rand(rng, dim)
+        sd[f"{p}.mlp.fc1.weight"] = linear(mlp_dim, dim)
+        sd[f"{p}.mlp.fc1.bias"] = _rand(rng, mlp_dim)
+        sd[f"{p}.mlp.fc2.weight"] = linear(dim, mlp_dim)
+        sd[f"{p}.mlp.fc2.bias"] = _rand(rng, dim)
+    sd["norm.weight"] = 1.0 + _rand(rng, dim)
+    sd["norm.bias"] = _rand(rng, dim)
+    sd["feature.0.weight"] = linear(dim, tokens * dim)
+    _rand_bn(rng, sd, "feature.1", dim)
+    sd["feature.2.weight"] = linear(embedding_dim, dim)
+    _rand_bn(rng, sd, "feature.3", embedding_dim)
+    return sd
+
+
+def vit_forward(sd, images_rgb_nchw, heads):
+    """arcface_torch's ``VisionTransformer.forward`` at inference, in
+    float32: (N, 3, 112, 112) RGB crops in [0, 255] -> (N, E) features."""
+    x = torch.as_tensor(images_rgb_nchw, dtype=torch.float32)
+    x = (x / 255.0 - 0.5) / 0.5
+    x = _conv(x, sd, "patch_embed.proj", stride=VIT_PATCH, bias=True)
+    x = x.flatten(2).transpose(1, 2) + _t(sd["pos_embed"])
+    n, t, c = x.shape
+
+    def ln(x, name):
+        return F.layer_norm(x, (c,), _t(sd[f"{name}.weight"]),
+                            _t(sd[f"{name}.bias"]), eps=1e-5)
+
+    def linear(x, name, bias=True):
+        return F.linear(x, _t(sd[f"{name}.weight"]),
+                        _t(sd[f"{name}.bias"]) if bias else None)
+
+    i = 0
+    while f"blocks.{i}.norm1.weight" in sd:
+        p = f"blocks.{i}"
+        qkv = linear(ln(x, f"{p}.norm1"), f"{p}.attn.qkv", bias=False)
+        q, k, v = qkv.reshape(n, t, 3, heads, c // heads).permute(2, 0, 3,
+                                                                  1, 4)
+        attn = ((q @ k.transpose(-2, -1)) * (c // heads) ** -0.5).softmax(-1)
+        a = (attn @ v).transpose(1, 2).reshape(n, t, c)
+        x = x + linear(a, f"{p}.attn.proj")
+        h = F.relu6(linear(ln(x, f"{p}.norm2"), f"{p}.mlp.fc1"))
+        x = x + linear(h, f"{p}.mlp.fc2")
+        i += 1
+    x = ln(x, "norm").reshape(n, -1)
+    x = _bn(linear(x, "feature.0", bias=False), sd, "feature.1", 2e-5)
+    return _bn(linear(x, "feature.2", bias=False), sd, "feature.3", 2e-5)
