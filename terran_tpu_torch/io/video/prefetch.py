@@ -86,6 +86,28 @@ def device_prefetch(batch_iterator, depth=None, device=None):
         yield batch
 
 
+class _Feed:
+    """The iterator ``threaded_device_put`` returns: its generator's items,
+    and ``ready()``, which says without blocking whether the next item (a
+    result or the end) is already queued."""
+
+    def __init__(self, items, results):
+        self._items = items
+        self._results = results
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return next(self._items)
+
+    def ready(self):
+        return not self._results.empty()
+
+    def close(self):
+        self._items.close()
+
+
 def threaded_device_put(batch_iterator, depth=2, put=None):
     """Yield ``put(batch)`` for each batch, uploading from a background
     thread that keeps at most ``depth`` results ahead of the consumer, so
@@ -94,7 +116,10 @@ def threaded_device_put(batch_iterator, depth=2, put=None):
 
     ``put`` defaults to a copy onto the CUDA card (raises when there is
     none). Exceptions from the source iterator or the upload propagate to
-    the consumer at the point of ``next()``.
+    the consumer at the point of ``next()``. The returned iterator's
+    ``ready()`` is true once the next result, or the end, is queued: a
+    consumer can ask whether ``next()`` would block. The thread starts at
+    the first ``next()``.
     """
     if put is None:
         put = _uploader(None)
@@ -124,19 +149,22 @@ def threaded_device_put(batch_iterator, depth=2, put=None):
         finally:
             offer(done)
 
-    worker = threading.Thread(
-        target=uploader, name="terran-tpu-torch-uploader", daemon=True
-    )
-    worker.start()
+    def items():
+        worker = threading.Thread(
+            target=uploader, name="terran-tpu-torch-uploader", daemon=True
+        )
+        worker.start()
 
-    try:
-        while True:
-            item = results.get()
-            if item is done:
-                worker.join()
-                if failure:
-                    raise failure[0]
-                return
-            yield item
-    finally:
-        stop.set()
+        try:
+            while True:
+                item = results.get()
+                if item is done:
+                    worker.join()
+                    if failure:
+                        raise failure[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+
+    return _Feed(items(), results)

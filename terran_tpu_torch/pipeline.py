@@ -1520,7 +1520,7 @@ class PerceptionPipeline:
     def process_stream(self, batches, depth=None, prefetch=True):
         """Software-pipelined batch processing.
 
-        ``depth`` batches are kept dispatched ahead of the oldest
+        At most ``depth`` batches are kept dispatched ahead of the oldest
         unfinished batch (default: config ``pipeline_depth``), so while
         batch *i*'s results download and its host stages run, batch *i+1*
         is computing and batch *i+2* is crossing the host->device link.
@@ -1531,12 +1531,22 @@ class PerceptionPipeline:
         the ``h2d_thread`` stage). Under the 'host' plan two threads
         precede the dispatch loop: the host resizes
         (``host_resize_thread``), then their uploads (``h2d_thread``).
+        ``depth`` is then an upper bound: while the uploads have no next
+        batch ready (a live source whose next frames are not filmed yet),
+        the loop advances the oldest dispatched batch, else collects and
+        yields the oldest advanced one, asking again after each step, and
+        blocks on the feed only once nothing is outstanding. A closed loop,
+        whose next batch is always waiting, keeps the depth schedule.
+        Without ``prefetch`` the depth schedule is the rule.
 
         Yields one result dict per input batch, in order. With a
         ``timer`` attached, each batch also records a ``release_wait``:
         host seconds from the end of its ``dispatch_batch`` to the start
         of its ``collect_batch``, less its own ``advance_batch``, the time
-        it waited for later batches to be dispatched.
+        it waited for later batches to be dispatched; and, with no clock
+        read, a ``release_early`` where the wait for the feed yielded it
+        or a ``release_depth`` where the depth schedule or the stream's
+        end did.
         """
         from collections import deque
 
@@ -1559,6 +1569,9 @@ class PerceptionPipeline:
             for fn, name in stages:
                 batches = threaded_device_put(
                     batches, depth=depth, put=self._worker_stage(fn, name))
+            ready = batches.ready
+        else:
+            ready = None
 
         # Two-phase finalization: once a batch leaves the dispatch window,
         # phase A (advance_batch: decision fetches + adaptive dispatches)
@@ -1577,11 +1590,12 @@ class PerceptionPipeline:
             state = self.advance_batch(*args)
             return state, dispatched, clock() - start
 
-        def collect(entry):
+        def collect(entry, release):
             state, dispatched, advance_s = entry
             if timer is not None:
                 timer.record("release_wait",
                              clock() - dispatched - advance_s)
+                timer.record(release, 0.0, 1)
             return self.collect_batch(state)
 
         pending = deque()
@@ -1590,14 +1604,21 @@ class PerceptionPipeline:
             pending.append((self.dispatch_batch(frames), clock()))
             if len(pending) > depth:
                 advanced.append(advance(pending.popleft()))
-            if len(advanced) > 1:
-                yield collect(advanced.popleft())
+            # An early release that the feed cut short may have left more
+            # batches advanced than the schedule keeps.
+            while len(advanced) > 1:
+                yield collect(advanced.popleft(), "release_depth")
+            while ready is not None and (pending or advanced) and not ready():
+                if pending:
+                    advanced.append(advance(pending.popleft()))
+                else:
+                    yield collect(advanced.popleft(), "release_early")
         while pending:
             advanced.append(advance(pending.popleft()))
             if len(advanced) > 1:
-                yield collect(advanced.popleft())
+                yield collect(advanced.popleft(), "release_depth")
         while advanced:
-            yield collect(advanced.popleft())
+            yield collect(advanced.popleft(), "release_depth")
 
     def faces_from(self, out):
         """Convert step outputs to the task-API list-of-dicts contract."""

@@ -28,6 +28,7 @@ CPU's FaceResNet100 costs ~0.3 s a crop on one thread.
 import dataclasses
 import sys
 import threading
+import time
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -461,6 +462,54 @@ def test_threaded_device_put_keeps_order_and_propagates_errors():
         for item in threaded_device_put(range(5), put=failing_put):
             got.append(item)
     assert got == [0, 1]
+
+
+def wait_until(predicate, timeout=30.0):
+    """Poll ``predicate`` until it holds; fail after ``timeout`` s."""
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.001)
+
+
+def test_threaded_device_put_ready_says_whether_next_would_block():
+    gates = [threading.Event() for _ in range(2)]
+
+    def gated():
+        for i, gate in enumerate(gates):
+            assert gate.wait(timeout=30), f"gate {i} never opened"
+            yield i
+
+    feed = threaded_device_put(gated(), depth=2, put=lambda x: 10 * x)
+    assert iter(feed) is feed
+    assert not feed.ready()  # the uploader starts at the first next()
+    gates[0].set()
+    assert next(feed) == 0
+    assert not feed.ready()  # the uploader waits at gate 1
+    gates[1].set()
+    wait_until(feed.ready)  # item 1 queued
+    assert next(feed) == 10
+    wait_until(feed.ready)  # the end queued
+    assert list(feed) == []
+
+
+def test_threaded_device_put_stops_uploading_once_closed():
+    pulled = []
+
+    def endless():
+        while True:
+            pulled.append(len(pulled))
+            yield pulled[-1]
+
+    feed = threaded_device_put(endless(), depth=2, put=lambda x: x)
+    assert [next(feed), next(feed)] == [0, 1]
+    feed.close()
+    time.sleep(0.3)
+    seen = len(pulled)
+    time.sleep(0.3)
+    assert len(pulled) == seen <= 2 + 2 + 1  # taken, queued, in hand
+    with pytest.raises(StopIteration):
+        next(feed)
 
 
 def test_fixed_shape_batches_pads_the_tail():

@@ -9,6 +9,7 @@ import gzip
 import json
 import re
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
@@ -192,14 +193,14 @@ def tiny_params():
             convert_openpose(random_openpose_state_dict(rng)))
 
 
-def tiny_pipeline(params, timer=None):
+def tiny_pipeline(params, timer=None, **kwargs):
     """Detection and pose at det short side 64 and pose 32 on the CPU, no
     embeddings."""
     det, pose = params
     return PerceptionPipeline(
         det, None, pose, device="cpu", with_embeddings=False, top_k=16,
         max_faces=4, max_peaks=8, max_escalations=0, det_short_side=64,
-        pose_short_side=32, timer=timer)
+        pose_short_side=32, timer=timer, **kwargs)
 
 
 def tiny_batches(count, batch=2):
@@ -416,6 +417,115 @@ def test_release_wait_once_a_batch(tiny_params, count):
     waits = timer.values["release_wait"]
     assert len(waits) == count
     assert all(0 <= seconds <= wall for seconds, _ in waits)
+
+
+PLANS = {"device": {}, "host": {"transfer_plan": "host",
+                                 "host_resize": "exact"}}
+FEED_TIMEOUT_S = 60
+
+
+def gated_feed(batches, received):
+    """``batches``, batch i+1 only once result i was received (a live
+    source whose next frames are not filmed yet); a result that never
+    comes fails the feed, and with it the stream, instead of hanging."""
+    for i, batch in enumerate(batches):
+        if i and not received[i - 1].wait(timeout=FEED_TIMEOUT_S):
+            raise TimeoutError(f"result {i - 1} was not released")
+        yield batch
+
+
+def run_feed(params, feed, count, plan="device", monkeypatch=None):
+    """The results and recorded timer of ``count`` tiny batches streamed
+    through a tiny pipeline at depth 2, from a ``feed`` of: 'gated'
+    (``gated_feed``), 'ready' (each dispatch returns only once the
+    uploads hold the next batch or the end) or 'unfetched' (no prefetch,
+    the batches handed over directly)."""
+    from terran_tpu_torch.io.video import prefetch
+
+    timer = RecordingTimer()
+    pipe = tiny_pipeline(params, timer, **PLANS[plan])
+    batches = tiny_batches(count)
+    received = [threading.Event() for _ in batches]
+    if feed == "ready":
+        feeds, put = [], prefetch.threaded_device_put
+
+        def kept(*args, **kwargs):
+            feeds.append(put(*args, **kwargs))
+            return feeds[-1]
+
+        monkeypatch.setattr(prefetch, "threaded_device_put", kept)
+        dispatch = pipe.dispatch_batch
+
+        def dispatch_then_wait(*args, **kwargs):
+            out = dispatch(*args, **kwargs)
+            deadline = time.monotonic() + FEED_TIMEOUT_S
+            while not feeds[-1].ready():
+                assert time.monotonic() < deadline, "the feed never filled"
+                time.sleep(0.001)
+            return out
+
+        pipe.dispatch_batch = dispatch_then_wait
+    source = gated_feed(batches, received) if feed == "gated" else batches
+    outs = []
+    for out in pipe.process_stream(source, depth=2,
+                                   prefetch=feed != "unfetched"):
+        received[len(outs)].set()
+        outs.append(out)
+    pipe.close()
+    return outs, timer
+
+
+def assert_same_tree(got, expected):
+    """Equal dicts, lists and arrays, leaf for leaf."""
+    if isinstance(expected, dict):
+        assert got.keys() == expected.keys()
+        for key in expected:
+            assert_same_tree(got[key], expected[key])
+    elif isinstance(expected, (list, tuple)):
+        assert len(got) == len(expected)
+        for a, b in zip(got, expected):
+            assert_same_tree(a, b)
+    else:
+        np.testing.assert_array_equal(got, expected)
+
+
+@pytest.mark.parametrize("plan", sorted(PLANS))
+def test_a_gated_feed_is_released_early(tiny_params, plan):
+    """A feed that makes batch i+1 only after result i arrived: under the
+    depth schedule alone result 0 would wait for batch 3 and the feed
+    would time out. Each result is released while the feed has nothing
+    ready, and equals the unfetched stream's."""
+    count = 4
+    outs, timer = run_feed(tiny_params, "gated", count, plan)
+    assert len(outs) == count
+    expected, _ = run_feed(tiny_params, "unfetched", count, plan)
+    assert_same_tree(outs, expected)
+    # The last may find the end already queued and leave as the tail.
+    assert len(timer.values["release_early"]) >= count - 1
+
+
+def test_a_ready_feed_keeps_the_depth_schedule(tiny_params, monkeypatch):
+    count = 5
+    outs, timer = run_feed(tiny_params, "ready", count,
+                           monkeypatch=monkeypatch)
+    expected, _ = run_feed(tiny_params, "unfetched", count)
+    assert_same_tree(outs, expected)
+    assert "release_early" not in timer.values
+    assert len(timer.values["release_depth"]) == count
+
+
+@pytest.mark.parametrize("feed", ["gated", "ready", "unfetched"])
+def test_one_release_record_a_batch(tiny_params, monkeypatch, feed):
+    count = 3
+    outs, timer = run_feed(tiny_params, feed, count,
+                           monkeypatch=monkeypatch)
+    assert len(outs) == count
+    records = (timer.values.get("release_early", [])
+               + timer.values.get("release_depth", []))
+    assert records == [(0.0, 1)] * count
+    assert len(timer.values["release_wait"]) == count
+    if feed == "unfetched":
+        assert "release_early" not in timer.values
 
 
 @pytest.mark.parametrize("frames,sources,batch", [(6, 2, 4), (3, 3, 2)])
