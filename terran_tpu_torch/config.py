@@ -2,10 +2,9 @@
 
 The same fields, defaults and ``TERRAN_TPU_<FIELD>`` environment overrides
 as ``terran_tpu/config.py``, so one environment configures both packages.
-This package reads the task defaults, the pose decode fields,
-``max_escalations``, ``compute_dtype`` and ``fused_peaks``; the pipeline,
-I/O and int8 fields are kept so that the fields the later parts of the port
-read already parse the same way.
+This package reads every field but ``pipeline_embed_windows``, which sizes
+the JAX package's windowed embed warp and is kept so that it parses the
+same way.
 """
 
 import os
@@ -30,7 +29,7 @@ class Config:
     human_score_threshold: float = 0.4
     max_peaks_per_part: int = 32
 
-    # Fused pipeline capacities and dispatch (not read by this package yet).
+    # Fused pipeline capacities and dispatch (pipeline.py).
     pipeline_top_k: int = 128
     pipeline_max_faces: int = 16
     pipeline_depth: int = 2
@@ -48,7 +47,7 @@ class Config:
     # (0 = warn only).
     max_escalations: int = 2
 
-    # I/O buffering (not read by this package yet).
+    # I/O buffering (io/video).
     reader_buffer_batches: int = 1
     writer_buffer_frames: int = 64
     writer_drain_timeout_s: float = 30.0

@@ -17,13 +17,12 @@ from terran_tpu_torch.checkpoint import (
     get_class_for_checkpoint, load_checkpoint_params,
 )
 from terran_tpu_torch.config import get_config
-from terran_tpu_torch.models.retinaface import RetinaFace as RetinaFaceModel
+from terran_tpu_torch.models import FAMILIES, load_model
 from terran_tpu_torch.models.retinaface import (
     make_detect_fn, unpack_detections,
 )
 from terran_tpu_torch.runtime import (
-    PARAMS_KEEP_F32, bucket_shape, cast_params_for_compute, default_policy,
-    resolve_device,
+    bucket_shape, default_policy, resolve_device,
 )
 from terran_tpu_torch.utils.batching import merge_factory, resize_factory
 from terran_tpu_torch.utils.profiling import get_logger
@@ -35,7 +34,7 @@ class RetinaFaceDetector:
     """RetinaFace detection wrapper; one detect step per (padded shape,
     top_k)."""
 
-    CHECKPOINT_CLASS = "terran_tpu_torch.face.detection.RetinaFaceDetector"
+    CHECKPOINT_CLASS = FAMILIES["retinaface"].checkpoint
 
     def __init__(self, params=None, nms_threshold=None, top_k=None,
                  bucketing=None, compute_dtype=None, device=None,
@@ -66,13 +65,9 @@ class RetinaFaceDetector:
         if params is None:
             params = load_checkpoint_params(self.CHECKPOINT_CLASS)
         self.device = resolve_device(device)
-        dtype = compute_dtype or default_policy().compute_dtype
-        params = cast_params_for_compute(
-            params, dtype, keep_f32=PARAMS_KEEP_F32["retinaface"]
-        )
-        model = RetinaFaceModel().to(dtype=dtype)
-        model.load_state_dict(params, strict=True)
-        self.model = model.to(self.device).eval()
+        self.model = load_model(
+            "retinaface", params,
+            compute_dtype or default_policy().compute_dtype, self.device)
         self._detect_fns = {}
         # Per-thread device pad buffers, at most 4 shapes: reuse saves an
         # allocation per call, and thread-locality keeps concurrent

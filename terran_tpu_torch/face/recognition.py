@@ -18,14 +18,11 @@ from terran_tpu_torch.checkpoint import (
     get_class_for_checkpoint, load_checkpoint_params,
 )
 from terran_tpu_torch.config import get_config
-from terran_tpu_torch.models.arcface import (
-    EMBEDDING_DIM, FaceResNet100, Int8FaceResNet100, normalize_embeddings,
-    quantize_params,
-)
+from terran_tpu_torch.models import FAMILIES, load_model
+from terran_tpu_torch.models.arcface import EMBEDDING_DIM, normalize_embeddings
 from terran_tpu_torch.ops.warp import alignment_matrices, warp_affine_batch
 from terran_tpu_torch.runtime import (
-    PARAMS_KEEP_F32, cast_params_for_compute, check_precision,
-    default_policy, resolve_device,
+    check_precision, default_policy, resolve_device,
 )
 
 TASK_NAME = "face-recognition"
@@ -126,7 +123,7 @@ def preprocess_face_no_landmarks(image, image_side=112):
 class ArcFaceRecognizer:
     """ArcFace embedding wrapper with alignment on the device."""
 
-    CHECKPOINT_CLASS = "terran_tpu_torch.face.recognition.ArcFaceRecognizer"
+    CHECKPOINT_CLASS = FAMILIES["arcface"].checkpoint
 
     def __init__(self, params=None, compute_dtype=None, device=None,
                  image_side=None, embed_precision=None):
@@ -147,20 +144,10 @@ class ArcFaceRecognizer:
         if params is None:
             params = load_checkpoint_params(self.CHECKPOINT_CLASS)
         self.device = resolve_device(device)
-        dtype = compute_dtype or default_policy().compute_dtype
-        if self.embed_precision == "int8":
-            # Quantised from the float32 masters, before any cast.
-            params = quantize_params(params, dtype)
-            model = Int8FaceResNet100(dtype)
-        else:
-            # The float32 'embed' projection keeps float32 weights.
-            params = cast_params_for_compute(
-                params, dtype, keep_f32=PARAMS_KEEP_F32["arcface"]
-            )
-            model = FaceResNet100().to(dtype=dtype)
-            model.embed.to(torch.float32)
-        model.load_state_dict(params, strict=True)
-        self.model = model.to(self.device).eval()
+        self.model = load_model(
+            "arcface", params,
+            compute_dtype or default_policy().compute_dtype, self.device,
+            self.embed_precision)
         self.image_side = image_side
 
     def _embed(self, crops):

@@ -69,6 +69,15 @@ class FaceResNet100(nn.Module):
         self.head_pre = Affine(CHANNELS[-1])
         self.embed = nn.Linear(7 * 7 * CHANNELS[-1], EMBEDDING_DIM)
 
+    @classmethod
+    def from_state_dict(cls, state_dict, dtype=torch.float32):
+        """The model in ``dtype`` but for ``embed``, which computes in
+        float32 and so keeps float32 weights; the weights are not
+        loaded."""
+        model = cls().to(dtype=dtype)
+        model.embed.to(torch.float32)
+        return model
+
     @property
     def compute_dtype(self):
         return self.initial.conv.weight.dtype

@@ -83,6 +83,11 @@ class BodyPoseModel(nn.Module):
             self.add_module(name, ConvBias(cin, cout, kernel,
                                            padding=padding, act=act))
 
+    @classmethod
+    def from_state_dict(cls, state_dict, dtype=torch.float32):
+        """The model in ``dtype``; the weights are not loaded."""
+        return cls().to(dtype=dtype)
+
     @property
     def compute_dtype(self):
         return self.conv1_1.weight.dtype

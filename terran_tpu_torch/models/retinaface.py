@@ -152,6 +152,11 @@ class RetinaFace(nn.Module):
         self.refiner = PyramidRefiner()
         self.heads = Heads()
 
+    @classmethod
+    def from_state_dict(cls, state_dict, dtype=torch.float32):
+        """The model in ``dtype``; the weights are not loaded."""
+        return cls().to(dtype=dtype)
+
     @property
     def compute_dtype(self):
         return self.base.first_conv.conv.weight.dtype

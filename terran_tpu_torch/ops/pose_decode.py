@@ -24,6 +24,7 @@ here copies from host memory and waits for the card.
 import numpy as np
 import torch
 
+from terran_tpu_torch.ops.upsample import sample_bicubic, upsample_bicubic
 from terran_tpu_torch.runtime import device_constant
 
 # Limb topology tables for the CMU 2017 body model — public OpenPose
@@ -215,13 +216,12 @@ def limb_scores_sampled(pafs_small, factor, coords, valid, thresh_midpoint):
     field through ``ops.upsample.sample_bicubic`` (the port of
     ``terran_tpu/ops/pose_decode.py::limb_scores_sampled``). Bit for bit
     ``limb_scores(upsample_bicubic(pafs_small, factor), ...)``; the
-    pipeline and ``make_pose_decode`` keep that materialised form.
+    pipeline and ``make_pose_decode`` keep that materialised form
+    (:func:`limb_table`).
 
     pafs_small: (..., h, w, 38), the network-resolution field; coords,
     valid as :func:`limb_scores`, in the upsampled grid.
     """
-    from terran_tpu_torch.ops.upsample import sample_bicubic
-
     h, w = pafs_small.shape[-3:-1]
     ups_h, ups_w = h * factor, w * factor
     seg_y, seg_x, dirs, norms, safe_norms, pair_valid = _limb_geometry(
@@ -243,6 +243,16 @@ def limb_scores_sampled(pafs_small, factor, coords, valid, thresh_midpoint):
         sample(0), sample(1), dirs, safe_norms, pair_valid, ups_h,
         thresh_midpoint,
     )
+
+
+def limb_table(pafs_small, coords, valid, thresh_midpoint, factor=8):
+    """The packed limb table (..., L, K, K, 2) = (reg_score, accept as
+    float32) of :func:`limb_scores` on the x``factor`` bicubic upsample of
+    ``pafs_small`` (..., h, w, 38), the network-resolution field; coords,
+    valid as :func:`limb_scores`, in the upsampled grid."""
+    reg, accept = limb_scores(upsample_bicubic(pafs_small, factor), coords,
+                              valid, thresh_midpoint)
+    return torch.stack([reg, accept.to(torch.float32)], dim=-1)
 
 
 def normalize_images(images):
@@ -316,7 +326,6 @@ def make_pose_decode(model, *, keypoint_threshold=0.1, thresh_midpoint=0.05,
     upsample + peak-scan; the PAF field is always materialised at x8.
     """
     from terran_tpu_torch.ops.fused_peaks import fused_peaks_enabled
-    from terran_tpu_torch.ops.upsample import upsample_bicubic
 
     if use_fused_peaks is None:
         use_fused_peaks = fused_peaks_enabled()
@@ -327,11 +336,9 @@ def make_pose_decode(model, *, keypoint_threshold=0.1, thresh_midpoint=0.05,
             model, images, keypoint_threshold, max_peaks, use_fused_peaks,
             factor=downsampling_ratio,
         )
-        paf = upsample_bicubic(paf, downsampling_ratio)
-        reg, accept = limb_scores(paf, coords, valid, thresh_midpoint)
-
+        limbs = limb_table(paf, coords, valid, thresh_midpoint,
+                           downsampling_ratio)
         peaks = pack_peaks(coords, scores, valid, overflow)
-        limbs = torch.stack([reg, accept.to(torch.float32)], dim=-1)
         return peaks, limbs
 
     return decode

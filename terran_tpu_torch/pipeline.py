@@ -63,8 +63,8 @@ that shape replays the graph in place of the program's eager launches
 raises ``NotImplementedError``.
 The JAX class's windowed and grouped-slab embed warps, also TPU cost
 reformulations, give the full-frame warp's crops bit for bit; this port
-warps from the full frames, so ``pipeline_embed_windows`` is read and has
-no effect.
+warps from the full frames, and ``pipeline_embed_windows`` has no effect
+here.
 """
 
 import contextlib
@@ -78,33 +78,23 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
+from terran_tpu_torch.models import FAMILIES, RECOGNIZERS, load_model
 from terran_tpu_torch.models.arcface import (
-    EMBEDDING_DIM, FaceResNet100, Int8FaceResNet100, normalize_embeddings,
-)
-from terran_tpu_torch.models.arcface import (
-    quantize_params as quantize_arcface,
-)
-from terran_tpu_torch.models.openpose import (
-    BodyPoseModel, Int8BodyPoseModel,
-)
-from terran_tpu_torch.models.openpose import (
-    quantize_params as quantize_openpose,
+    EMBEDDING_DIM, normalize_embeddings,
 )
 from terran_tpu_torch.models.quant import reduce_activation_scales
 from terran_tpu_torch.models.retinaface import (
-    RetinaFace, make_detect_fn, unpack_detections,
+    make_detect_fn, unpack_detections,
 )
-from terran_tpu_torch.models.vit import ViTRecognizer
 from terran_tpu_torch.ops.fused_peaks import fused_peaks_enabled
 from terran_tpu_torch.ops.pose_decode import (
-    NUM_LIMBS, NUM_PARTS, forward_and_find_peaks, limb_scores, pack_peaks,
+    NUM_LIMBS, NUM_PARTS, forward_and_find_peaks, limb_table, pack_peaks,
     unpack_pose_outputs,
 )
 from terran_tpu_torch.ops.resize import (
     resize_bilinear_u8, resize_bilinear_u8_cv2, resize_bilinear_u8_host,
     resized_shape,
 )
-from terran_tpu_torch.ops.upsample import upsample_bicubic
 from terran_tpu_torch.ops.warp import (
     alignment_matrices, alignment_matrices_torch, warp_affine_frames,
     warp_affine_u8_batch_cv2, warp_affine_u8_batch_numpy,
@@ -114,10 +104,8 @@ from terran_tpu_torch.parallel.mesh import (
 )
 from terran_tpu_torch.pose.assembly import assemble_humans, get_keypoints
 from terran_tpu_torch.runtime import (
-    PARAMS_KEEP_F32, cast_params_for_compute, check_precision,
-    default_policy, resolve_device,
+    check_precision, default_policy, resolve_device,
 )
-from terran_tpu_torch.utils.convert import as_state_dict
 from terran_tpu_torch.utils.profiling import (
     NO_RANGE, profiler_range, profiling,
 )
@@ -136,41 +124,6 @@ def _resolve_dispatch(name, mode):
 
 def _buckets(setting):
     return sorted(int(x) for x in str(setting).split(",") if str(x).strip())
-
-
-_MODELS = {"retinaface": RetinaFace, "arcface": FaceResNet100,
-           "openpose": BodyPoseModel, "vit_l": ViTRecognizer}
-# The recognizers a pipeline can run, by family: FaceResNet100 (ArcFace's
-# LResNet100E-IR) or the ViT of insightface's arcface_torch.
-RECOGNIZERS = ("arcface", "vit_l")
-_INT8_MODELS = {"arcface": (Int8FaceResNet100, quantize_arcface),
-                "openpose": (Int8BodyPoseModel, quantize_openpose)}
-
-
-def _load(family, params, dtype, device, precision="native"):
-    """The ``family`` model in ``dtype`` with ``params`` (a state dict or
-    a ``terran_tpu`` pytree), on ``device``, in eval mode. Under
-    ``precision='int8'`` its convs are quantised from the float32 masters
-    before the other leaves are cast to ``dtype``, as the JAX class
-    quantises before its bf16 cast."""
-    params = as_state_dict(params)
-    if precision == "int8":
-        model_cls, quantize = _INT8_MODELS[family]
-        model = model_cls(dtype)
-        params = quantize(params, dtype)
-    else:
-        params = cast_params_for_compute(
-            params, dtype, keep_f32=PARAMS_KEEP_F32[family]
-        )
-        model_cls = _MODELS[family]
-        if family == "vit_l":  # sized by its weights, built in dtype
-            model = model_cls.from_state_dict(params, dtype)
-        else:
-            model = model_cls().to(dtype=dtype)
-        if family == "arcface":
-            model.embed.to(torch.float32)  # it computes in float32
-    model.load_state_dict(params, strict=True)
-    return model.to(device).eval()
 
 
 def graphs_eligible(device, mesh, transfer_plan, embed_precision,
@@ -237,7 +190,7 @@ class _DeviceSpan:
     this object's making and :meth:`stop`: a CUDA event pair on a card,
     recorded around a program's call and so outside any graph that the
     call replays; the host clock elsewhere, where each op runs as it is
-    called. ``slots``: what :meth:`stop` was given."""
+    called."""
 
     def __init__(self, device):
         if device.type == "cuda":
@@ -246,10 +199,8 @@ class _DeviceSpan:
             self._start.record()
         else:
             self._start, self._end = time.perf_counter(), None
-        self.slots = 0
 
-    def stop(self, slots):
-        self.slots = slots
+    def stop(self):
         if self._end is None:
             self._end = time.perf_counter()
         else:
@@ -343,9 +294,10 @@ class PerceptionPipeline:
         if recognizer not in RECOGNIZERS:
             raise ValueError(f"recognizer must be one of {RECOGNIZERS}, got "
                              f"{recognizer!r}")
-        if recognizer == "vit_l" and self.embed_precision == "int8":
-            raise ValueError("embed_precision='int8' quantises FaceResNet100;"
-                             " the 'vit_l' recognizer has no int8 trunk")
+        if (self.embed_precision == "int8"
+                and FAMILIES[recognizer].int8 is None):
+            raise ValueError(f"embed_precision='int8': the {recognizer!r} "
+                             "recognizer has no int8 trunk")
         self.recognizer = recognizer
         self.with_pose = with_pose
         self.with_embeddings = with_embeddings
@@ -460,19 +412,16 @@ class PerceptionPipeline:
             self.device = torch.device("cuda", torch.cuda.current_device())
         if det_params is None:
             det_params = load_checkpoint_params(
-                "terran_tpu_torch.face.detection.RetinaFaceDetector"
-            )
+                FAMILIES["retinaface"].checkpoint)
         if rec_params is None and with_embeddings:
-            if recognizer != "arcface":
+            if FAMILIES[recognizer].checkpoint is None:
                 raise ValueError(f"recognizer={recognizer!r} needs "
                                  "rec_params: the store has no checkpoint")
             rec_params = load_checkpoint_params(
-                "terran_tpu_torch.face.recognition.ArcFaceRecognizer"
-            )
+                FAMILIES[recognizer].checkpoint)
         if pose_params is None and with_pose:
             pose_params = load_checkpoint_params(
-                "terran_tpu_torch.pose.openpose.OpenPoseEstimator"
-            )
+                FAMILIES["openpose"].checkpoint)
 
         cuda = self.device.type == "cuda"
         # All device work is ordered on one compute stream; uploads run
@@ -481,16 +430,17 @@ class PerceptionPipeline:
         self._upload_stream = torch.cuda.Stream(self.device) if cuda else None
 
         dtype = compute_dtype or default_policy().compute_dtype
-        self.det_model = _load("retinaface", det_params, dtype, self.device)
+        self.det_model = load_model("retinaface", det_params, dtype,
+                                    self.device)
         self.rec_model = (
             None if rec_params is None else
-            _load(recognizer, rec_params, dtype, self.device,
-                  self.embed_precision)
+            load_model(recognizer, rec_params, dtype, self.device,
+                       self.embed_precision)
         )
         self.pose_model = (
             None if pose_params is None else
-            _load("openpose", pose_params, dtype, self.device,
-                  self.pose_precision)
+            load_model("openpose", pose_params, dtype, self.device,
+                       self.pose_precision)
         )
         if mesh is not None:
             # Replicas hold the mesh's first rank's weights, and the int8
@@ -509,14 +459,10 @@ class PerceptionPipeline:
                             else self.pose_model.state_dict())
 
         self.embed_buckets = _buckets(cfg.pipeline_embed_buckets)
-        self.embed_windows = _buckets(cfg.pipeline_embed_windows)
         self.peak_buckets = _buckets(cfg.pose_peak_buckets)
 
-        self._step_fns = {}
-        self._pose_fns = {}
-        self._warp_embed_fns = {}
-        self._pose_detect_fns = {}
-        self._limb_fns = {}
+        # The device programs by (kind, key), made by _cached.
+        self._programs = {}
         # Captured graphs of those programs by (program, input signature,
         # thresholds), made by warmup where graphs_eligible says so.
         self._graphs = {}
@@ -539,8 +485,19 @@ class PerceptionPipeline:
         self.use_fused_peaks = fused_peaks_enabled(cfg.fused_peaks)
 
     # ------------------------------------------------------------------
-    # Device programs: closures cached per shape and capacity
+    # Device programs: closures cached per kind, shape and capacity
     # ------------------------------------------------------------------
+
+    def _cached(self, kind, key, build):
+        """The device program of ``kind`` at ``key``: ``build()``'s closure
+        on first use, then that same closure on every call, which the key
+        of its captured graph holds (:meth:`_graph_key`). Only the
+        perception step's ``build`` does work (it uploads its anchors);
+        the others return the closure their builder made."""
+        program = self._programs.get((kind, key))
+        if program is None:
+            program = self._programs[kind, key] = build()
+        return program
 
     def _perception_fn(self, full_h, full_w, top_k=None, pre_resized=False):
         """The perception step for (full_h, full_w) frames at NMS capacity
@@ -550,56 +507,55 @@ class PerceptionPipeline:
         resized to the detection size; (full_h, full_w) still set the
         coordinates' scale back."""
         top_k = self.top_k if top_k is None else top_k
-        key = (full_h, full_w, self.embed_dispatch, top_k, pre_resized)
-        if key in self._step_fns:
-            return self._step_fns[key]
 
-        det_h, det_w, det_scale = resized_shape(
-            full_h, full_w, self.det_short_side
-        )
-        # Every anchor cell is valid at the unpadded det shape.
-        detect = make_detect_fn(self.det_model, det_h, det_w,
-                                nms_threshold=self.nms_threshold,
-                                top_k=top_k)
-        max_faces = self.max_faces
-        inv_scale = 1.0 / det_scale
-        with_embeddings = (
-            self.with_embeddings and self.rec_model is not None
-            and self.embed_dispatch == "fused" and not pre_resized
-        )
+        def build():
+            det_h, det_w, det_scale = resized_shape(
+                full_h, full_w, self.det_short_side
+            )
+            # Every anchor cell is valid at the unpadded det shape.
+            detect = make_detect_fn(self.det_model, det_h, det_w,
+                                    nms_threshold=self.nms_threshold,
+                                    top_k=top_k)
+            max_faces = self.max_faces
+            inv_scale = 1.0 / det_scale
+            with_embeddings = (
+                self.with_embeddings and self.rec_model is not None
+                and self.embed_dispatch == "fused" and not pre_resized
+            )
 
-        def step(frames_full):
-            frames_det = (frames_full if pre_resized else
-                          resize_bilinear_u8(frames_full, det_h, det_w))
-            packed = detect(frames_det, self.threshold)
-            # Boxes and landmarks back to full resolution with the task
-            # API's rounding (around().astype(int32)); one packed table
-            # -> one copy back: 4 box + 10 landmark + score + mask +
-            # per-image NMS overflow (broadcast along K).
-            coords = torch.round(packed[..., :14] * inv_scale).to(
-                torch.int32)
-            result = {"det_packed": torch.cat(
-                [coords.to(torch.float32), packed[..., 14:]], dim=-1)}
-            if with_embeddings:
-                b = coords.shape[0]
-                lmk_top = coords[:, :max_faces, 4:14].reshape(
-                    b, -1, 5, 2).to(torch.float32)
-                mats = alignment_matrices_torch(lmk_top)
-                # The reference warps to uint8.
-                result["crops"] = torch.round(
-                    warp_affine_frames(frames_full, mats))
-                result["emb_mask_dev"] = packed[:, :max_faces, 15] > 0.5
-            return result
+            def step(frames_full):
+                frames_det = (frames_full if pre_resized else
+                              resize_bilinear_u8(frames_full, det_h, det_w))
+                packed = detect(frames_det, self.threshold)
+                # Boxes and landmarks back to full resolution with the
+                # task API's rounding (around().astype(int32)); one packed
+                # table -> one copy back: 4 box + 10 landmark + score +
+                # mask + per-image NMS overflow (broadcast along K).
+                coords = torch.round(packed[..., :14] * inv_scale).to(
+                    torch.int32)
+                result = {"det_packed": torch.cat(
+                    [coords.to(torch.float32), packed[..., 14:]], dim=-1)}
+                if with_embeddings:
+                    b = coords.shape[0]
+                    lmk_top = coords[:, :max_faces, 4:14].reshape(
+                        b, -1, 5, 2).to(torch.float32)
+                    mats = alignment_matrices_torch(lmk_top)
+                    # The reference warps to uint8.
+                    result["crops"] = torch.round(
+                        warp_affine_frames(frames_full, mats))
+                    result["emb_mask_dev"] = packed[:, :max_faces, 15] > 0.5
+                return result
 
-        self._step_fns[key] = step
-        return step
+            return step
 
-    def _embed_fn(self):
-        """(B, F, 112, 112, 3) crops and (B, F) mask -> the packed (B, F,
-        513) grid: normalised embeddings, zero where masked, + the mask."""
-        return self._embed
+        return self._cached(
+            "perception",
+            (full_h, full_w, self.embed_dispatch, top_k, pre_resized), build)
 
     def _embed(self, crops, emb_mask):
+        """The embed program: (B, F, 112, 112, 3) crops and (B, F) mask ->
+        the packed (B, F, dim + 1) grid: normalised embeddings, zero where
+        masked, + the mask."""
         b, f = crops.shape[:2]
         feats = self.rec_model(crops.reshape((-1,) + crops.shape[2:]))
         feats = normalize_embeddings(feats.to(torch.float32))
@@ -613,9 +569,6 @@ class PerceptionPipeline:
         batch (adaptive embed). Takes the plan as one packed (B, k, 7)
         float32 tensor: 6 alignment-matrix entries (host float64 Umeyama)
         + validity."""
-        key = (k_slots,) + tuple(frames_shape)
-        if key in self._warp_embed_fns:
-            return self._warp_embed_fns[key]
 
         def warp_embed(frames, packed):
             b = frames.shape[0]
@@ -624,8 +577,8 @@ class PerceptionPipeline:
             crops = torch.round(warp_affine_frames(frames, mats))
             return self._embed(crops, valid)
 
-        self._warp_embed_fns[key] = warp_embed
-        return warp_embed
+        return self._cached("warp_embed", (k_slots,) + tuple(frames_shape),
+                            lambda: warp_embed)
 
     def _select_embed_bucket(self, count, capacity):
         """Smallest configured per-frame slot bucket >= count, else the
@@ -639,9 +592,6 @@ class PerceptionPipeline:
         """The pose step with the limbs fused in: frames -> (peaks (B, P,
         K, 5), limbs (B, L, K, K, 2))."""
         max_peaks = self.max_peaks if max_peaks is None else max_peaks
-        key = (full_h, full_w, max_peaks)
-        if key in self._pose_fns:
-            return self._pose_fns[key]
         pose_h, pose_w, _ = resized_shape(
             full_h, full_w, self.pose_short_side
         )
@@ -650,12 +600,11 @@ class PerceptionPipeline:
             paf, peaks, coords, valid = self._pose_front(
                 frames_full, pose_h, pose_w, max_peaks
             )
-            reg, accept = limb_scores(upsample_bicubic(paf, 8), coords,
-                                      valid, self.thresh_midpoint)
-            return peaks, torch.stack([reg, accept.to(torch.float32)], -1)
+            return peaks, limb_table(paf, coords, valid,
+                                     self.thresh_midpoint)
 
-        self._pose_fns[key] = decode
-        return decode
+        return self._cached("pose", (full_h, full_w, max_peaks),
+                            lambda: decode)
 
     def _pose_front(self, frames_full, pose_h, pose_w, max_peaks,
                     pre_resized=False):
@@ -680,9 +629,6 @@ class PerceptionPipeline:
         ``pre_resized`` (the 'host' plan) the input is the frames already
         resized to the pose size."""
         max_peaks = self.max_peaks if max_peaks is None else max_peaks
-        key = (full_h, full_w, max_peaks, pre_resized)
-        if key in self._pose_detect_fns:
-            return self._pose_detect_fns[key]
         pose_h, pose_w, _ = resized_shape(
             full_h, full_w, self.pose_short_side
         )
@@ -693,26 +639,22 @@ class PerceptionPipeline:
             )
             return peaks, paf
 
-        self._pose_detect_fns[key] = detect_pose
-        return detect_pose
+        return self._cached("pose_detect",
+                            (full_h, full_w, max_peaks, pre_resized),
+                            lambda: detect_pose)
 
     def _limb_fn(self, kb, paf_shape):
         """Bucketed limb-pair scoring: PAF x8 upsample + line integrals
         over (kb, kb) candidate pairs per limb, the gather form. Takes
         the peak plan as one (B, P, kb, 3) tensor: y, x, valid."""
-        key = (kb, self.limb_backend) + tuple(paf_shape)
-        if key in self._limb_fns:
-            return self._limb_fns[key]
 
         def limbs_fn(paf, cv_packed):
             coords = cv_packed[..., :2].to(torch.int32)
             valid = cv_packed[..., 2] > 0.5
-            reg, accept = limb_scores(upsample_bicubic(paf, 8), coords,
-                                      valid, self.thresh_midpoint)
-            return torch.stack([reg, accept.to(torch.float32)], dim=-1)
+            return limb_table(paf, coords, valid, self.thresh_midpoint)
 
-        self._limb_fns[key] = limbs_fn
-        return limbs_fn
+        return self._cached("limbs", (kb, self.limb_backend)
+                            + tuple(paf_shape), lambda: limbs_fn)
 
     def _select_peak_bucket(self, count, cap=None):
         cap = self.max_peaks if cap is None else cap
@@ -781,20 +723,18 @@ class PerceptionPipeline:
             return self._program(fn, *args), None
         span = _DeviceSpan(self.device)
         out = self._program(fn, *args)
-        span.stop(slots=out.shape[0] * out.shape[1])
+        span.stop()
         return out, span
 
     def _record_embed(self, fetch):
-        """With a timer attached, the records of the embed program whose
+        """With a timer attached, the record of the embed program whose
         packed output ``fetch`` has reached the host: ``embed_device``, its
         device seconds with items the faces embedded (the valid slots; the
-        global batch's under a mesh), and ``embed_slots``, items the slots
-        it computed, with no clock read."""
+        global batch's under a mesh)."""
         if self.timer is None or fetch.span is None:
             return
         faces = int((fetch.numpy()[..., -1] > 0.5).sum())
         self.timer.record("embed_device", fetch.span.seconds(), faces)
-        self.timer.record("embed_slots", 0.0, fetch.span.slots)
 
     # ------------------------------------------------------------------
     # Host orchestration
@@ -856,7 +796,7 @@ class PerceptionPipeline:
         self._gathered(det["det_packed"])
         embeds = self.with_embeddings and self.rec_model is not None
         if embeds and self.embed_dispatch == "fused":
-            run(self._embed_fn(),
+            run(self._embed,
                 torch.zeros((batch, self.max_faces, CROP_SIDE, CROP_SIDE, 3),
                             device=self.device),
                 torch.zeros((batch, self.max_faces), dtype=torch.bool,
@@ -866,7 +806,7 @@ class PerceptionPipeline:
                 if k > self.max_faces:
                     continue
                 if hostprep:
-                    run(self._embed_fn(),
+                    run(self._embed,
                         self._put_batch(np.zeros(
                             (batch, k, CROP_SIDE, CROP_SIDE, 3), np.uint8)),
                         self._put_batch(np.zeros((batch, k), bool)))
@@ -1035,7 +975,7 @@ class PerceptionPipeline:
         span = None
         if "crops" in out:
             out["emb_packed"], span = self._run_embed(
-                self._embed_fn(), out.pop("crops"), out.pop("emb_mask_dev"))
+                self._embed, out.pop("crops"), out.pop("emb_mask_dev"))
         return {key: self._fetch(value, span if key == "emb_packed" else None)
                 for key, value in out.items()}
 
@@ -1404,7 +1344,7 @@ class PerceptionPipeline:
         """The 'host' plan's :meth:`_dispatch_adaptive_embed`: the faces
         are warped on the host (:meth:`_host_warp_fn`) and only the
         (b, k, 112, 112, 3) uint8 crops and their (b, k) mask cross the
-        link, into the crops+mask embed (:meth:`_embed_fn`). Runs on the
+        link, into the crops+mask embed (:meth:`_embed`). Runs on the
         embed worker thread, so it makes the compute stream current and
         enters inference mode itself (both are per thread). Returns the
         in-flight fetch, or None when no faces were found. Under a mesh
@@ -1434,7 +1374,7 @@ class PerceptionPipeline:
             inputs = (self._put_batch(crops), self._put_batch(mask))
             if self.mesh is not None:
                 return inputs
-            return _Fetch(*self._run_embed(self._embed_fn(), *inputs))
+            return _Fetch(*self._run_embed(self._embed, *inputs))
 
     def _collect_adaptive_embed(self, plan, n):
         """Fetch the adaptive embed result and place it in the
@@ -1444,7 +1384,7 @@ class PerceptionPipeline:
         if isinstance(plan, Future):
             plan = plan.result()
         if isinstance(plan, tuple):  # a mesh's uploaded (crops, mask)
-            plan = self._fetch(*self._run_embed(self._embed_fn(), *plan))
+            plan = self._fetch(*self._run_embed(self._embed, *plan))
         if plan is None:
             return (
                 np.zeros((n, self.max_faces, EMBEDDING_DIM), np.float32),

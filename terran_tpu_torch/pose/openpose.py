@@ -12,16 +12,13 @@ import torch
 
 from terran_tpu_torch.checkpoint import load_checkpoint_params
 from terran_tpu_torch.config import get_config
-from terran_tpu_torch.models.openpose import (
-    BodyPoseModel, Int8BodyPoseModel, quantize_params,
-)
+from terran_tpu_torch.models import FAMILIES, load_model
 from terran_tpu_torch.ops.pose_decode import (
     make_pose_decode, unpack_pose_outputs,
 )
 from terran_tpu_torch.pose.assembly import assemble_humans, get_keypoints
 from terran_tpu_torch.runtime import (
-    PARAMS_KEEP_F32, cast_params_for_compute, check_precision,
-    default_policy, resolve_device,
+    check_precision, default_policy, resolve_device,
 )
 from terran_tpu_torch.utils.batching import resize_factory
 from terran_tpu_torch.utils.profiling import get_logger
@@ -29,7 +26,7 @@ from terran_tpu_torch.utils.profiling import get_logger
 
 class OpenPoseEstimator:
 
-    CHECKPOINT_CLASS = "terran_tpu_torch.pose.openpose.OpenPoseEstimator"
+    CHECKPOINT_CLASS = FAMILIES["openpose"].checkpoint
 
     def __init__(self, params=None, short_side=None, compute_dtype=None,
                  device=None, max_peaks=None, max_escalations=None,
@@ -59,18 +56,10 @@ class OpenPoseEstimator:
         if params is None:
             params = load_checkpoint_params(self.CHECKPOINT_CLASS)
         self.device = resolve_device(device)
-        dtype = compute_dtype or default_policy().compute_dtype
-        if self.pose_precision == "int8":
-            # Quantised from the float32 masters, before any cast.
-            params = quantize_params(params, dtype)
-            model = Int8BodyPoseModel(dtype)
-        else:
-            params = cast_params_for_compute(
-                params, dtype, keep_f32=PARAMS_KEEP_F32["openpose"]
-            )
-            model = BodyPoseModel().to(dtype=dtype)
-        model.load_state_dict(params, strict=True)
-        self.model = model.to(self.device).eval()
+        self.model = load_model(
+            "openpose", params,
+            compute_dtype or default_policy().compute_dtype, self.device,
+            self.pose_precision)
         self.short_side = short_side
         self.max_peaks = max_peaks
         self.use_fused_peaks = use_fused_peaks

@@ -104,6 +104,11 @@ def make(params, **kwargs):
         device="cpu", **config)
 
 
+def program_kinds(pipe):
+    """The kinds of device program the pipeline built."""
+    return {kind for kind, _ in pipe._programs}
+
+
 def frames_of(seed, shape=(2, 96, 128, 3)):
     return np.random.default_rng(seed).integers(0, 255, shape, dtype=np.uint8)
 
@@ -285,7 +290,7 @@ def test_no_faces_builds_no_embed_program(params):
     np.testing.assert_array_equal(out["embeddings"], 0.0)
     assert out["embeddings"].shape == (2, 4, 512)
     assert not out["embeddings_mask"].any()
-    assert pipe._warp_embed_fns == {}
+    assert "warp_embed" not in program_kinds(pipe)
 
 
 def test_no_peaks_builds_no_limb_program(params):
@@ -293,7 +298,7 @@ def test_no_peaks_builds_no_limb_program(params):
     pipe.keypoint_threshold = 1e9
     out = pipe.process_batch(frames_of(16))
     assert out["poses"] == [[], []]
-    assert pipe._limb_fns == {}
+    assert "limbs" not in program_kinds(pipe)
 
 
 @pytest.mark.parametrize("kind,buckets,count,capacity,expected", [
@@ -370,11 +375,9 @@ def test_warmup_runs_the_program_family(params):
     # detection + embed (k=1, k=2=max_faces) + pose detect + limbs (kb=4,
     # kb=8=max_peaks)
     assert pipe.warmup(batch=2, height=96, width=128) == 1 + 2 + 1 + 2
-    caches = ("_step_fns", "_warp_embed_fns", "_pose_detect_fns",
-              "_limb_fns")
-    before = {name: set(getattr(pipe, name)) for name in caches}
+    before = set(pipe._programs)
     out = pipe.process_batch(frames_of(20))
-    assert {name: set(getattr(pipe, name)) for name in caches} == before
+    assert set(pipe._programs) == before
     assert out["embeddings"].shape == (2, 2, 512)
 
     fused = make(params, embed_dispatch="fused", limb_dispatch="fused",
@@ -586,16 +589,34 @@ def test_graphs_eligible(device, mesh, plan, embed, pose, expected):
 
 
 def program_keys(pipe):
-    return {name: set(getattr(pipe, name)) for name in (
-        "_step_fns", "_pose_fns", "_warp_embed_fns", "_pose_detect_fns",
-        "_limb_fns")}
+    """The (kind, key) of every device program the pipeline built."""
+    return set(pipe._programs)
+
+
+@pytest.mark.parametrize("builder,args", [
+    ("_perception_fn", (96, 128)),
+    ("_warp_embed_fn", (2, (2, 96, 128, 3))),
+    ("_pose_fn", (96, 128)),
+    ("_pose_detect_fn", (96, 128)),
+    ("_limb_fn", (4, (2, 12, 16, 38))),
+])
+def test_a_program_is_built_once_per_key(params, builder, args):
+    """Every call at one key returns the same closure, which a captured
+    graph's key holds; another key builds another."""
+    pipe = make(params)
+    build = getattr(pipe, builder)
+    program = build(*args)
+    assert build(*args) is program
+    assert len(program_keys(pipe)) == 1
+    other = build(args[0] * 2, *args[1:])
+    assert other is not program and len(program_keys(pipe)) == 2
 
 
 def test_graph_calls_count_eager_on_cpu(params):
     pipe = make(params)
     pipe.process_batch(frames_of(21))
     # No warmup: each program built ran once, eagerly.
-    calls = sum(map(len, program_keys(pipe).values()))
+    calls = len(program_keys(pipe))
     assert calls >= 2
     assert pipe.graph_calls == {"replayed": 0, "eager": calls}
     assert pipe.warmup(batch=2, height=96, width=128) > 0

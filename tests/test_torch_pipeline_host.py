@@ -299,11 +299,10 @@ def test_warmup_runs_the_jax_class_programs(jax_params):
     assert jax_count == 1 + 2 + 1 + 2
     assert port.warmup(batch=2, height=128, width=192) == jax_count
 
-    caches = ("_step_fns", "_warp_embed_fns", "_pose_detect_fns",
-              "_limb_fns")
-    before = {name: set(getattr(port, name)) for name in caches}
+    before = set(port._programs)
     out = port.process_batch(frames_of(11, (2, 128, 192, 3)))
-    assert {name: set(getattr(port, name)) for name in caches} == before
-    assert port._warp_embed_fns == {}  # the host plan embeds crops
+    assert set(port._programs) == before
+    # The host plan embeds crops.
+    assert all(kind != "warp_embed" for kind, _ in port._programs)
     assert out["embeddings"].shape == (2, 2, 512)
     port.close()
