@@ -2230,19 +2230,161 @@ def int8_conv_bound_ms(m, k, n, in_bytes, out_bytes, weight_bytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def int8_conv_phase(arc_params, pose_params, dev, card):
-    """Every distinct quantised conv of both trunks at the pipeline's
-    shapes, bf16: the CUDA path (im2col + torch._int_mm) against the plain
-    float64 conv on the card, int32 accumulators, activation scale and
-    outputs equal; the call timed beside cuDNN's bf16 conv of the same
-    shape and against its bound. Returns the rows."""
+def same_values(got, expected):
+    """Equal dtype, shape and values, a NaN equal to a NaN."""
     import torch
-    import torch.nn.functional as F
+
+    if (got.dtype, got.shape) != (expected.dtype, expected.shape):
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, expected)
+    return (torch.equal(got.isnan(), expected.isnan())
+            and torch.equal(got.nan_to_num(), expected.nan_to_num()))
+
+
+def int8_epilogues(module, parents, gen, dtype):
+    """{mode name: quant_conv keywords} of the four epilogue modes, with
+    the float64 bias and scale of ``module``'s own epilogue where it has
+    them (OpenPose's bias, ArcFace's affine on ``parents[module]``) and
+    drawn in ``dtype`` where not; and the name of the mode it runs."""
+    import torch
+
+    cout = module.weight_q.shape[0]
+    dev = module.weight_q.device
+    own = parents.get(module, module)
+    bias64 = getattr(own, "bias64", None)
+    if bias64 is None:
+        bias64 = torch.randn(cout, generator=gen, device=dev).to(dtype).to(
+            torch.float64)
+    scale64 = getattr(own, "scale64", None)
+    if scale64 is None:
+        scale64 = (torch.rand(cout, generator=gen, device=dev) + 0.5).to(
+            dtype).to(torch.float64)
+    modes = {"dequantize": {}, "bias": {"bias64": bias64},
+             "bias+relu": {"bias64": bias64, "relu": True},
+             "affine": {"bias64": bias64, "scale64": scale64}}
+    if own is not module:
+        return modes, "affine"
+    return modes, ("bias+relu" if getattr(module, "act", None) == "relu"
+                   else "bias")
+
+
+def int8_kernel_names():
+    from terran_tpu_torch.models import quant
+
+    return quant.QUANTIZE_KERNELS + (quant.EPILOGUE_KERNEL,)
+
+
+def int8_launch_counts(since=None):
+    """{"int_mm": torch._int_mm calls, kernel name: launches} so far, by
+    quant_conv's counters (each kernel counted where it launches), less
+    ``since``."""
+    from terran_tpu_torch.models import quant
+
+    counts = {"int_mm": quant.quant_conv.launches}
+    counts.update((name, quant.quant_conv.fused[name])
+                  for name in int8_kernel_names())
+    if since is not None:
+        counts = {name: n - since[name] for name, n in counts.items()}
+    return counts
+
+
+def check_int8_launches(counts, what):
+    """Every int8 conv of ``counts`` (int8_launch_counts) took the
+    kernels: each kernel launched once a ``torch._int_mm`` call."""
+    if counts["int_mm"] < 1 or any(counts[name] != counts["int_mm"]
+                                   for name in int8_kernel_names()):
+        raise AssertionError(f"{what}: _int_mm calls and kernel launches "
+                             f"{counts}, expected each kernel once an int8 "
+                             "conv")
+
+
+def int8_conv_eager(x, weight_q, weight_scale, stride, padding, out_dtype,
+                    weight_mat, **epilogue):
+    """The eager passes the kernels replace, for their time and launch
+    records: quantize_activation, the eager im2col and torch._int_mm,
+    epilogue_plain."""
+    from terran_tpu_torch.models import quant
+
+    xq, xs = quant.quantize_activation(x)
+    acc = quant.conv_int32_int_mm(xq, weight_mat, weight_q.shape[0],
+                                  weight_q.shape[-1], stride, padding)
+    return quant.epilogue_plain(acc, xs, weight_scale, out_dtype, **epilogue)
+
+
+def check_int8_conv(x, module, modes, label):
+    """The kernels against the eager passes and the plain float64 conv on
+    one input: max|x|, xs and every byte of the column matrix (padding
+    included) equal to quantize_activation + im2col_int8, the int32
+    product to the float64 conv (not where xs is NaN: a NaN has no
+    integer there), each epilogue mode's output to epilogue_plain, and
+    quant_conv in each mode to quant_conv_plain, each kernel launched once
+    by its counter; a NaN equals a NaN. Returns the column matrix and the
+    outputs' dims."""
+    import torch
 
     from terran_tpu_torch.models import quant
 
+    wq, ws, wm = module.weight_q, module.weight_scale, module.weight_mat
+    cout, _, kernel, _ = wq.shape
+    stride, padding = module.stride, module.padding
+    cols, scalars, (n, ho, wo) = quant.quantize_im2col(x, kernel, stride,
+                                                       padding)
+    max_abs, xs = scalars
+    xq, xs_eager = quant.quantize_activation(x)
+    cols_eager, _ = quant.im2col_int8(xq, kernel, stride, padding)
+    acc_plain, xs_plain = quant.quant_conv_int32_plain(x, wq, stride, padding)
+    m = n * ho * wo
+    acc = torch._int_mm(cols, wm)
+    acc_nhwc = acc[:m, :cout].reshape(n, ho, wo, cout)
+    checks = {
+        "max|x|": same_values(max_abs, x.abs().amax().to(torch.float32)),
+        "xs": same_values(xs, xs_eager) and same_values(xs, xs_plain),
+        "column matrix": same_values(cols, cols_eager),
+        "int32 product": (bool(xs.isnan())
+                          or same_values(acc_nhwc, acc_plain)),
+    }
+    for name, kwargs in modes.items():
+        out = quant.dequant_epilogue(acc, scalars, (n, ho, wo), cout, ws,
+                                     x.dtype, **kwargs)
+        checks[f"{name} epilogue"] = same_values(
+            out, quant.epilogue_plain(acc_nhwc, xs_eager, ws, x.dtype,
+                                      **kwargs))
+        args = (x, wq, ws, stride, padding, x.dtype, wm)
+        before = int8_launch_counts()
+        out = quant.quant_conv(*args, **kwargs)
+        checks[f"{name} launches"] = set(
+            int8_launch_counts(before).values()) == {1}
+        checks[f"{name} quant_conv"] = same_values(
+            out, quant.quant_conv_plain(*args, **kwargs))
+    torch.cuda.synchronize()
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"int8 conv {label}: the kernels and the eager "
+                             f"passes differ in {failed}")
+    return cols, (n, ho, wo)
+
+
+def int8_conv_phase(arc_params, pose_params, dev, card):
+    """Every distinct quantised conv of both trunks at the pipeline's
+    shapes, bf16: the kernels of csrc/quant_conv.cu against the eager
+    passes and the plain float64 conv on the card (check_int8_conv), then
+    an all-zero activation (the 1e-12 floor) and one with a NaN through
+    the first conv of each trunk and a 7x7 conv over 185 channels; each
+    conv timed through the kernels beside the eager passes, torch._int_mm
+    alone, cuDNN's bf16 conv of the same shape and its bounds. Returns the
+    rows and the cases, for int8_conv_launches."""
+    from functools import partial
+
+    import torch
+    import torch.nn.functional as F
+
+    from terran_tpu_torch.models import arcface, quant
+
     dtype = torch.bfloat16
     rec, pose = int8_models(arc_params, pose_params, dtype, dev)
+    parents = {m.conv: m for m in rec.modules()
+               if isinstance(m, arcface._Int8ConvAffine)}
     crops, pose_in = int8_pipeline_inputs(dev, dtype)
     groups = {}
     for model_name, model, x in (("arcface", rec, crops),
@@ -2253,25 +2395,19 @@ def int8_conv_phase(arc_params, pose_params, dev, card):
                    module.padding, shape)
             groups.setdefault(key, [module, 0])[1] += 1
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    rows = []
+    rows, cases = [], []
     for key, (module, count) in groups.items():
         model_name, cin, cout, kernel, stride, padding, shape = key
         x = torch.randn(shape, generator=gen, device=dev).relu().to(dtype)
+        modes, own = int8_epilogues(module, parents, gen, dtype)
+        cols, (n, ho, wo) = check_int8_conv(x, module, modes, key)
         wq, ws, wm = module.weight_q, module.weight_scale, module.weight_mat
-        acc, xs = quant.quant_conv_int32(x, wq, stride, padding, wm)
-        acc_plain, xs_plain = quant.quant_conv_int32_plain(x, wq, stride,
-                                                           padding)
-        out = quant.quant_conv(x, wq, ws, stride, padding, dtype, wm)
-        out_plain = quant.dequantize(acc_plain, xs_plain, ws, dtype)
-        torch.cuda.synchronize()
-        if not (torch.equal(acc, acc_plain) and torch.equal(xs, xs_plain)
-                and torch.equal(out, out_plain)):
-            raise AssertionError(f"int8 conv {key}: the _int_mm path and the "
-                                 "plain float64 conv differ")
-        xq, _ = quant.quantize_activation(x)
-        cols, (n, ho, wo) = quant.im2col_int8(xq, kernel, stride, padding)
-        ms = time_ms(lambda: quant.quant_conv(x, wq, ws, stride, padding,
-                                              dtype, wm))
+        args = (x, wq, ws, stride, padding, dtype, wm)
+        kernels = partial(quant.quant_conv, *args, **modes[own])
+        eager = partial(int8_conv_eager, *args, **modes[own])
+        cases.append((key, count, kernels, eager))
+        ms = time_ms(kernels)
+        eager_ms = time_ms(eager)
         int_mm_ms = time_ms(lambda: torch._int_mm(cols, wm))
         # The same product with the weight matrix row-major: the layout
         # conv_weight_matrix does not take.
@@ -2282,48 +2418,166 @@ def int8_conv_phase(arc_params, pose_params, dev, card):
         library_ms = time_ms(lambda: F.conv2d(x_nchw, w_bf16, stride=stride,
                                               padding=padding))
         m, k = n * ho * wo, kernel * kernel * cin
-        bound_ms, bound_by = int8_conv_bound_ms(
-            m, k, cout, x.numel() * x.element_size(),
-            m * cout * out.element_size(), wq.numel())
+        x_bytes, out_bytes = x.numel() * x.element_size(), m * cout * 2
+        bound_ms, bound_by = int8_conv_bound_ms(m, k, cout, x_bytes,
+                                                out_bytes, wq.numel())
+        # The three kernels' least traffic: the activation read twice, the
+        # column matrix written once, the int32 product read once and the
+        # output written once.
+        kernels_bytes = (2 * x_bytes + cols.numel() + m * wm.shape[1] * 4
+                         + out_bytes)
         rows.append({
             "model": model_name, "cin": cin, "cout": cout, "k": kernel,
             "stride": stride, "input": list(shape), "m": m,
             "k_padded": cols.shape[1], "n_padded": wm.shape[1],
-            "exact": True, "max_abs_err": 0.0,
-            "acc_max": int(acc.abs().max()), "ms": ms,
-            "int_mm_ms": int_mm_ms,
+            "epilogue": own, "exact": True, "max_abs_err": 0.0,
+            "ms": ms, "eager_ms": eager_ms, "int_mm_ms": int_mm_ms,
             "int_mm_row_major_ms": int_mm_row_major_ms,
             "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernels_bound_ms": 1e3 * kernels_bytes / PEAK_BYTES,
             "im2col_bytes": cols.numel() + m * wm.shape[1] * 4,
             "launches_per_batch": count,
         })
-        log(f"int8 conv == plain ({card}): {model_name} {cin}->{cout} "
-            f"k{kernel} s{stride} on {tuple(shape)} (M={m}, K={k}->"
-            f"{cols.shape[1]}, N={cout}->{wm.shape[1]}) x{count} a batch: "
-            f"quant_conv {ms:.4f} ms (_int_mm {int_mm_ms:.4f}, row-major "
-            f"weights {int_mm_row_major_ms:.4f}), cuDNN bf16 "
-            f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), "
-            f"im2col {rows[-1]['im2col_bytes'] / 1e6:.1f} MB")
+        log(f"int8 conv == eager == plain ({card}): {model_name} {cin}->"
+            f"{cout} k{kernel} s{stride} on {tuple(shape)} (M={m}, K={k}->"
+            f"{cols.shape[1]}, N={cout}->{wm.shape[1]}, {own}) x{count} a "
+            f"batch: kernels {ms:.4f} ms against eager {eager_ms:.4f} "
+            f"(_int_mm {int_mm_ms:.4f}, row-major weights "
+            f"{int_mm_row_major_ms:.4f}), cuDNN bf16 {library_ms:.4f} ms, "
+            f"bound {bound_ms:.5f} ms ({bound_by}), the three kernels' "
+            f"bytes {rows[-1]['kernels_bound_ms']:.5f} ms, im2col "
+            f"{rows[-1]['im2col_bytes'] / 1e6:.1f} MB")
+    edge = [(key, module) for key, (module, _) in groups.items()
+            if key[1] in (3, 185)]
+    for key, module in edge:
+        modes, _ = int8_epilogues(module, parents, gen, dtype)
+        zeros = torch.zeros(key[-1], dtype=dtype, device=dev)
+        check_int8_conv(zeros, module, modes, f"{key} all zero")
+        _, (_, xs), _ = quant.quantize_im2col(zeros, *key[3:6])
+        nan = torch.randn(key[-1], generator=gen, device=dev).to(dtype)
+        nan[-1, 1, 2, -1] = float("nan")
+        check_int8_conv(nan, module, modes, f"{key} with a NaN")
+        _, (_, xs_nan), _ = quant.quantize_im2col(nan, *key[3:6])
+        if not (xs.item() == float(torch.tensor(quant.SCALE_FLOOR))
+                and bool(xs_nan.isnan())):
+            raise AssertionError(f"int8 conv {key}: xs {xs.item()} of zeros, "
+                                 f"{xs_nan.item()} with a NaN")
+    log(f"int8 conv edge activations ({card}): an all-zero activation (xs "
+        f"= float32(1e-12)) and one with a NaN (xs NaN) equal to the eager "
+        f"passes through {len(edge)} convs (cin 3 and 185, the 7x7)")
     for name in ("arcface", "openpose"):
         rows_of = [r for r in rows if r["model"] == name]
+
+        def total(field, rows_of=rows_of):
+            return sum(r[field] * r["launches_per_batch"] for r in rows_of)
+
         log(f"int8 {name} at the pipeline's shapes: "
             f"{sum(r['launches_per_batch'] for r in rows_of)} convs a batch, "
-            f"quant_conv "
-            f"{sum(r['ms'] * r['launches_per_batch'] for r in rows_of):.3f} "
-            f"ms against cuDNN bf16 "
-            f"{sum(r['library_ms'] * r['launches_per_batch'] for r in rows_of):.3f}"
-            f" ms, bound "
-            f"{sum(r['bound_ms'] * r['launches_per_batch'] for r in rows_of):.4f}"
-            f" ms, im2col "
-            f"{sum(r['im2col_bytes'] * r['launches_per_batch'] for r in rows_of) / 1e9:.3f} GB")
-    return rows
+            f"kernels {total('ms'):.3f} ms against eager "
+            f"{total('eager_ms'):.3f} ms, _int_mm {total('int_mm_ms'):.3f} "
+            f"ms, cuDNN bf16 {total('library_ms'):.3f} ms, bound "
+            f"{total('bound_ms'):.4f} ms, the three kernels' bytes "
+            f"{total('kernels_bound_ms'):.4f} ms, im2col "
+            f"{total('im2col_bytes') / 1e9:.3f} GB")
+    return rows, cases
+
+
+def int8_conv_launches(cases, card, calls=5, attempts=3):
+    """Device records and device ms of one call of each distinct int8
+    conv through the kernels and through the eager passes, from
+    torch.profiler's records of ``calls`` calls (phase 6). Each profiled
+    call of the kernels must launch each kernel once by its counter, and
+    the profiler must record each kernel at least ``calls`` - 1 times. It
+    loses a record now and then (PERF.md section 7), so a conv short of
+    that is profiled again, up to ``attempts`` times, each short attempt
+    logged. Returns {key: {"kernels": [records, ms], "eager": [records,
+    ms], "kernel_ms": {kernel: ms a call}, "records": {kernel: records},
+    "attempts": n, "per_batch": the conv's calls a batch}}."""
+    names = int8_kernel_names()
+    out = {}
+    for key, count, kernels, eager in cases:
+        for attempt in range(1, attempts + 1):
+            counts = {}
+            before = int8_launch_counts()
+            k_rec, k_ms, by_name = profile_call(kernels, calls, counts)
+            launched = int8_launch_counts(before)
+            # profile_call makes two calls besides the profiled ones.
+            if set(launched.values()) != {calls + 2}:
+                raise AssertionError(f"int8 conv {key}: {launched} "
+                                     f"launches over {calls + 2} calls")
+            records = {name: sum(n for kernel, n in counts.items()
+                                 if name in kernel) for name in names}
+            if min(records.values()) >= calls - 1:
+                break
+            log(f"int8 conv launches ({card}): {key}, attempt {attempt}: "
+                f"the profiler recorded {records} of {calls} calls, "
+                f"{launched} launched")
+        else:
+            raise AssertionError(f"int8 conv {key}: the profiler recorded "
+                                 f"{records} of {calls} calls in each of "
+                                 f"{attempts} attempts")
+        e_rec, e_ms, _ = profile_call(eager, calls)
+        kernel_ms = {name: sum(ms for kernel, ms in by_name.items()
+                               if name in kernel) for name in names}
+        out[str(key)] = {"kernels": [k_rec, k_ms], "eager": [e_rec, e_ms],
+                         "kernel_ms": kernel_ms, "records": records,
+                         "attempts": attempt, "per_batch": count}
+        log(f"int8 conv launches ({card}): {key[0]} {key[1]}->{key[2]} "
+            f"k{key[3]} s{key[4]} on {key[6]}: kernels {k_rec:g} device "
+            f"records a call (memset included), {k_ms:.4f} device ms "
+            f"({', '.join(f'{n} {ms:.4f}' for n, ms in kernel_ms.items())}"
+            f"; records {records} of {calls}); eager {e_rec:g}, "
+            f"{e_ms:.4f} ms")
+    return out
+
+
+def int8_kernels_entry(rows, launches, pipe_int8, card):
+    """The kernels line's entry of csrc/quant_conv.cu: sums over a
+    pipeline batch's int8 convs (each distinct conv's figures times its
+    calls a batch) of int8_conv_phase's rows (whole conv calls: the
+    kernels and _int_mm, against the eager passes, bf16 cuDNN and the
+    kernels' byte bound) and int8_conv_launches' profiled device ms of
+    each kernel, and the main path's launches a batch by the counters."""
+    def total(field):
+        return sum(r[field] * r["launches_per_batch"] for r in rows)
+
+    names = int8_kernel_names()
+    kernel_ms = {name: sum(v["kernel_ms"][name] * v["per_batch"]
+                           for v in launches.values()) for name in names}
+    per_batch = pipe_int8["launches_per_batch"]
+    return {
+        "name": "quant_conv",
+        "route": "cuda",
+        "source": "terran_tpu_torch/csrc/quant_conv.cu",
+        "replaces": "terran_tpu/models/quant.py:57 (XLA's fusion around "
+                    "its int8 conv; no Pallas kernel)",
+        "launches": sum(pipe_int8["launches"][name] for name in names),
+        "pipeline_batches": pipe_int8["batches"],
+        "pipeline_launches_per_batch": {name: per_batch[name]
+                                        for name in names},
+        "pipeline_int_mm_per_batch": per_batch["int_mm"],
+        "convs_checked": len(rows),
+        "max_abs_err": 0.0,
+        "exact": all(r["exact"] for r in rows),
+        "ms": total("ms"),
+        "kernel_ms": sum(kernel_ms.values()),
+        "kernel_ms_by_name": kernel_ms,
+        "int_mm_ms": total("int_mm_ms"),
+        "plain_ms": total("eager_ms"),
+        "bound_ms": total("kernels_bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "cudnn_bf16_ms": total("library_ms"),
+        "card": card,
+    }
 
 
 def int8_float32_phase(arc_params, pose_params, dev, card):
     """float32, TF32 off: Int8FaceResNet100 on 8 seeded crops and
-    Int8BodyPoseModel on one 184-side frame through the CUDA path equal
-    the same modules through the plain float64 convs on the card; the
+    Int8BodyPoseModel on one 184-side frame through the kernels equal the
+    same modules through the plain float64 convs and eager epilogues on
+    the card (quant_conv_kernels swapped for quant_conv_plain); the
     embedding cosine of int8 against the float32 FaceResNet100."""
     import numpy as np
     import torch
@@ -2346,22 +2600,21 @@ def int8_float32_phase(arc_params, pose_params, dev, card):
         with torch.inference_mode():
             return rec(crops), pose(frame)
 
-    quant.quant_conv.launches = 0
+    before = int8_launch_counts()
     feats, (paf, heat) = run()
-    launches = quant.quant_conv.launches
-    cuda_path = quant.quant_conv_int32
-    quant.quant_conv_int32 = (lambda x, weight_q, stride, padding,
-                              weight_mat=None, group=None:
-                              quant.quant_conv_int32_plain(
-                                  x, weight_q, stride, padding, group))
+    counts = int8_launch_counts(before)
+    launches = counts["int_mm"]
+    kernels = quant.quant_conv_kernels
+    quant.quant_conv_kernels = quant.quant_conv_plain
     try:
         feats_plain, (paf_plain, heat_plain) = run()
     finally:
-        quant.quant_conv_int32 = cuda_path
+        quant.quant_conv_kernels = kernels
     torch.cuda.synchronize()
     if launches != 103 + 92:
         raise AssertionError(f"{launches} _int_mm calls in one forward of "
                              "each int8 trunk, expected 103 + 92")
+    check_int8_launches(counts, "int8 float32 trunks")
     for name, got, ref in (("embedding features", feats, feats_plain),
                            ("pafs", paf, paf_plain),
                            ("heatmaps", heat, heat_plain)):
@@ -2374,14 +2627,16 @@ def int8_float32_phase(arc_params, pose_params, dev, card):
     with torch.inference_mode():
         ref = normalize_embeddings(native.to(dev).eval()(crops))
     cosine = (normalize_embeddings(feats) * ref).sum(-1)
-    log(f"int8 float32 ({card}): {launches} _int_mm calls; embeddings "
+    log(f"int8 float32 ({card}): {launches} _int_mm calls, all through "
+        f"the kernels; embeddings "
         f"{tuple(feats.shape)}, pafs {tuple(paf.shape)} and heatmaps "
         f"{tuple(heat.shape)} equal to the plain convs on the card; "
         f"embedding cosine int8 vs float32 FaceResNet100 min "
         f"{float(cosine.min()):.6f} mean {float(cosine.mean()):.6f}")
     if not bool((cosine > 0.98).all()):
         raise AssertionError(f"int8 embeddings far from float32: {cosine}")
-    return {"int_mm_calls": launches, "equal_to_plain": True,
+    return {"int_mm_calls": launches, "kernel_launches": counts,
+            "equal_to_plain": True,
             "embedding_cosine_min": float(cosine.min()),
             "embedding_cosine_mean": float(cosine.mean())}
 
@@ -2393,17 +2648,18 @@ def int8_task_phase(arc_params, pose_params, frames, rng, card, native_ms):
     import numpy as np
 
     from terran_tpu_torch.face import Recognition
-    from terran_tpu_torch.models import quant
     from terran_tpu_torch.ops import fused_peaks as fp
     from terran_tpu_torch.pose import Estimation
 
     pose = Estimation(params=pose_params, pose_precision="int8")
-    fp.find_peaks_fused.launches = quant.quant_conv.launches = 0
+    fp.find_peaks_fused.launches = 0
+    before = int8_launch_counts()
     people, warm_s, pose_ms = timed_calls(lambda: pose(frames))
-    pose_launches = {"int_mm": quant.quant_conv.launches,
-                     "fused_peaks": fp.find_peaks_fused.launches}
+    pose_launches = dict(int8_launch_counts(before),
+                         fused_peaks=fp.find_peaks_fused.launches)
     if min(pose_launches.values()) < 1 + TIMED_CALLS:
         raise AssertionError(f"int8 pose task: launches {pose_launches}")
+    check_int8_launches(pose_launches, "int8 pose task")
     assert len(people) == len(frames)
     for frame_people in people:
         for person in frame_people:
@@ -2412,10 +2668,12 @@ def int8_task_phase(arc_params, pose_params, frames, rng, card, native_ms):
 
     recognition = Recognition(params=arc_params, embed_precision="int8")
     face_lists = synthetic_faces(rng, len(frames))
-    quant.quant_conv.launches = 0
+    before = int8_launch_counts()
     feats, rec_warm_s, rec_ms = timed_calls(
         lambda: recognition(list(frames), face_lists))
-    rec_launches = quant.quant_conv.launches
+    rec_counts = int8_launch_counts(before)
+    check_int8_launches(rec_counts, "int8 recognition task")
+    rec_launches = rec_counts["int_mm"]
     for frame_feats in feats:
         assert frame_feats.shape == (FACES_PER_FRAME, 512)
         if not np.allclose(np.linalg.norm(frame_feats, axis=1), 1.0,
@@ -2426,12 +2684,13 @@ def int8_task_phase(arc_params, pose_params, frames, rng, card, native_ms):
         f"{warm_s:.3f} s; launches {pose_launches}); recognition of "
         f"{FACES_PER_FRAME} faces a frame {rec_ms:.2f} ms a call (native "
         f"{native_ms['recognition']:.2f}; warm {rec_warm_s:.3f} s; "
-        f"{rec_launches} _int_mm calls)")
+        f"{rec_launches} _int_mm calls, all through the kernels)")
     return {"pose_ms": pose_ms, "recognition_ms": rec_ms,
             "native_pose_ms": native_ms["pose"],
             "native_recognition_ms": native_ms["recognition"],
             "pose_launches": pose_launches,
-            "recognition_int_mm_calls": rec_launches}
+            "recognition_int_mm_calls": rec_launches,
+            "recognition_launches": rec_counts}
 
 
 def pipeline_int8_phase(params, batches, card, native):
@@ -2481,6 +2740,7 @@ def pipeline_int8_phase(params, batches, card, native):
     fp.find_peaks_fused.launches = 0
     nms.suppress.launches = 0
     quant.quant_conv.launches = 0
+    quant.quant_conv.fused.clear()
     fps = []
     for _ in range(PIPE_SWEEPS):
         start = time.perf_counter()
@@ -2491,7 +2751,7 @@ def pipeline_int8_phase(params, batches, card, native):
     swept = PIPE_SWEEPS * PIPE_BATCHES
     launches = {"fused_peaks": fp.find_peaks_fused.launches,
                 "nms": 2 * nms.suppress.launches,
-                "int_mm": quant.quant_conv.launches}
+                **int8_launch_counts()}
     for name in ("fused_peaks", "nms"):
         if launches[name] != 2 * swept:
             raise AssertionError(f"the int8 pipeline launched {name}'s "
@@ -2500,6 +2760,7 @@ def pipeline_int8_phase(params, batches, card, native):
     if launches["int_mm"] < 92 * swept:
         raise AssertionError(f"{launches['int_mm']} _int_mm calls over "
                              f"{swept} batches: the int8 trunks did not run")
+    check_int8_launches(launches, f"the int8 pipeline over {swept} batches")
     fps_median = sorted(fps)[len(fps) // 2]
     summary = timer.summary()
     per_batch = {name: count / swept for name, count in launches.items()}
@@ -2945,6 +3206,7 @@ def main():
     import numpy as np
 
     from terran_tpu_torch.face.detection import RetinaFaceDetector
+    from terran_tpu_torch.models import quant
     from terran_tpu_torch.ops import fused_peaks as fp
     from terran_tpu_torch.ops import nms
     from terran_tpu_torch.pose import Estimation
@@ -2970,14 +3232,17 @@ def main():
 
     # 2. Build, one nvcc per source, all started together.
     start = time.perf_counter()
-    cuda_build.load_libraries("fused_peaks.cu", "nms.cu")
+    sources = ("fused_peaks.cu", "nms.cu", "quant_conv.cu")
+    cuda_build.load_libraries(*sources)
     fp._library()
     nms._library()
+    quant._library()
     nvcc_s = ", ".join(f"{name} {cuda_build.build_seconds.get(name, 0.0):.2f} s"
-                       for name in ("fused_peaks.cu", "nms.cu"))
-    log(f"build: fused_peaks.cu (scan + merge kernels) and nms.cu "
-        f"(mask + sweep kernels) in {time.perf_counter() - start:.2f} s "
-        f"(nvcc {nvcc_s}; 0 = cached)")
+                       for name in sources)
+    log(f"build: fused_peaks.cu (scan + merge kernels), nms.cu (mask + "
+        f"sweep kernels) and quant_conv.cu (absmax, quantize_im2col, "
+        f"dequant_epilogue) in {time.perf_counter() - start:.2f} s (nvcc "
+        f"{nvcc_s}; 0 = cached)")
     native_s = native_phase()
 
     # 3. Kernel vs plain version on the card.
@@ -3155,7 +3420,8 @@ def main():
     rec_ms = recognition_phase(arc_params, frames, face_rng, card)
     # The int8 trunks: every quantised conv shape against its plain
     # version, then both task APIs with 'int8'.
-    int8_convs = int8_conv_phase(arc_params, state_dict, dev, card)
+    int8_convs, int8_cases = int8_conv_phase(arc_params, state_dict, dev,
+                                             card)
     int8_tasks = int8_task_phase(arc_params, state_dict, frames, face_rng,
                                  card, {"pose": batch_ms,
                                         "recognition": rec_ms})
@@ -3292,6 +3558,10 @@ def main():
                                  "sweep_kernel once each")
         nms_kernel_ms[k] = dict(names, total=total)
 
+    # The int8 convs: device records and ms a call, kernels beside eager.
+    int8_launches = int8_conv_launches(int8_cases, card)
+    del int8_cases
+
     # Both kernels on every batch of the warm pipeline's stream and of the
     # concurrent streams, from the profiler's kernel records of one sweep
     # each like the timed ones (the kernels' Python counters see no
@@ -3380,11 +3650,13 @@ def main():
             "warmup_programs")},
         "task_apis": int8_tasks, "float32_models": int8_f32,
         "device_product": "torch._int_mm (library call, not a kernel of "
-                          "the repository)",
+                          "the repository) between csrc/quant_conv.cu's "
+                          "quantisation and epilogue kernels",
         "card": card,
     }}))
     log(json.dumps({"graphs": dict(graphs, card=card)}))
     log(json.dumps({"int8_convs": int8_convs}))
+    log(json.dumps({"int8_conv_launches": int8_launches}))
     log(json.dumps({"tiled": dict(tiled, card=card)}))
     log(json.dumps({"scaleout": dict(scaleout, card=card)}))
     log(json.dumps({"recognition_no_landmarks": dict(no_landmarks,
@@ -3494,7 +3766,7 @@ def main():
         "traced_batches": observability["traced_batches"],
         "library_ms": None,
         "card": card,
-    }]}))
+    }, int8_kernels_entry(int8_convs, int8_launches, pipe_int8, card)]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

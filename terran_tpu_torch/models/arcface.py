@@ -137,7 +137,8 @@ class _Int8Affine(nn.Module):
 
 class _Int8ConvAffine(_Int8Affine):
     """``_quant_conv_affine``: the int8 conv cast to the compute dtype,
-    then the folded-BN affine in it."""
+    then the folded-BN affine in it (``quant.epilogue_plain``'s affine
+    mode; on the card one kernel after the product)."""
 
     def __init__(self, in_channels, features, kernel, stride, padding,
                  dtype):
@@ -146,7 +147,8 @@ class _Int8ConvAffine(_Int8Affine):
                                 padding)
 
     def forward(self, x):
-        return super().forward(self.conv(x, self.scale.dtype))
+        return self.conv(x, self.scale.dtype, bias64=self.bias64,
+                         scale64=self.scale64)
 
 
 class _Int8Unit(nn.Module):

@@ -18,7 +18,7 @@ from torch import nn
 
 from terran_tpu_torch.models.layers import ConvBias, max_pool_2x2
 from terran_tpu_torch.models.quant import (
-    QuantConv2d, conv_range, keep_float64_copies, quantize_state_dict,
+    QuantConv2d, keep_float64_copies, quantize_state_dict,
 )
 
 PAF_CHANNELS = 38
@@ -134,10 +134,8 @@ def _cpm_forward(model, h, pool, channel_dim):
 class _Int8ConvBias(QuantConv2d):
     """``conv`` of ``apply_int8``: the dequantised conv plus the bias in
     float32 with one rounding, then the ReLU, then the cast to the compute
-    dtype. XLA compiles ``acc * (xs * scale) + bias`` into a fused
-    multiply-add, and that rounding decides the next conv's int8 values,
-    so the product and the sum run in float64, where the product is
-    exact."""
+    dtype (``quant.epilogue_plain``'s bias mode; on the card one kernel
+    after the product)."""
 
     def __init__(self, in_channels, out_channels, kernel, padding, act,
                  dtype):
@@ -149,13 +147,8 @@ class _Int8ConvBias(QuantConv2d):
         self.act = act
 
     def forward(self, x):
-        with conv_range(x, self.weight_q, self.stride, self.padding):
-            acc, xs = self.accumulate(x)
-            y = torch.addcmul(self.bias64, acc.to(torch.float32),
-                              xs * self.weight_scale).to(torch.float32)
-            if self.act == "relu":
-                y = torch.relu(y)
-            return y.to(self.bias.dtype)
+        return super().forward(x, self.bias.dtype, bias64=self.bias64,
+                               relu=self.act == "relu")
 
 
 def _max_pool_nhwc(x):

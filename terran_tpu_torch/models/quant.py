@@ -9,26 +9,39 @@ operation order ``acc * (xs * scale)``.
 
 The JAX package leaves the int8 convolution to XLA: no Pallas kernel is
 replaced here. Eager PyTorch has no int8 convolution on CUDA, so on the
-card each conv is an im2col of the padded int8 activations (a strided
-view copied once into an (M, K) int8 matrix) and one ``torch._int_mm``
-into int32, a library call (cuBLASLt's IMMA product), like a plain
-matrix product that XLA would run. What bounds it is not the product:
-the im2col writes kh * kw bytes for every input byte (FaceResNet100's
-first-unit conv1 at 64 crops: 802,816 x 576 int8, 462 MB, plus a 205 MB
-int32 result), and each conv takes some dozen eager launches (the scale,
-the rounding, the pad, the im2col copy, the product, the dequantisation)
-where a cuDNN conv takes one. ``quant_conv.launches`` counts the
-``_int_mm`` calls.
+card each conv is an int8 im2col matrix times the int8 weight matrix in
+one ``torch._int_mm`` into int32, a library call (cuBLASLt's IMMA
+product), like a plain matrix product that XLA would run. Around it run
+three kernels of ``csrc/quant_conv.cu`` (built by ``nvcc`` at first use):
+the activation's ``max|x|`` (:func:`quantize_im2col`, with the group's
+all-reduce after it), the quantisation written straight into the padded
+column matrix, and after the product the dequantisation fused with its
+module's bias and ReLU or its folded-BatchNorm affine
+(:func:`dequant_epilogue`): four launches a conv and one memset. What
+bounds them is bytes: the column matrix holds kh * kw bytes for every
+input element (FaceResNet100's first-unit conv1 at 64 crops: 802,816 x
+576 int8, 462 MB, and a 205 MB int32 product). ``quant_conv.launches``
+counts the ``_int_mm`` calls; ``quant_conv.fused``, a Counter, each
+kernel's launches by its name, counted where it launches, so on the
+card every name's count equals ``quant_conv.launches``.
 
-On the CPU, :func:`quant_conv` takes the plain version: the same
-quantisation, then ``F.conv2d`` of the int8 values in float64. That is
-exact: every product and partial sum is an integer below 127 * 127 *
-9072 < 2**53 (float32, exact only below 2**24, is not).
+Their plain versions are the eager passes they replace, kept for the
+tests and the card's checks of each stage: :func:`quantize_activation`,
+:func:`im2col_int8`, :func:`conv_int32_int_mm`, :func:`dequantize` and
+:func:`epilogue_plain`. On the CPU, :func:`quant_conv` takes
+:func:`quant_conv_plain`: the same quantisation, then ``F.conv2d`` of the
+int8 values in float64. That is exact: every product and partial sum is
+an integer below 127 * 127 * 9072 < 2**53 (float32, exact only below
+2**24, is not).
 
 Layout: activations are NHWC, as in the JAX package; weights are OIHW
 (``weight_q``), and the product's (K, N) matrix is built once per conv
 (:func:`conv_weight_matrix`).
 """
+
+import collections
+import contextlib
+import ctypes
 
 import torch
 import torch.distributed as dist
@@ -52,6 +65,18 @@ INT_MM_MIN_ROWS = 17
 # The profiler range of one int8 conv: batch, input height, width and
 # channels, output channels, kernel, stride, padding.
 CONV_RANGE = "terran::quant_conv n{} h{} w{} c{} o{} k{} s{} p{}"
+# The epilogue modes of csrc/quant_conv.cu's dequant_epilogue_kernel, one
+# a caller: quant_conv's dequantisation, OpenPose's conv + bias [+ ReLU],
+# ArcFace's conv + folded-BatchNorm affine (:func:`epilogue_plain`).
+DEQUANTIZE, BIAS, AFFINE = 0, 1, 2
+_SOURCE = "quant_conv.cu"
+# The kernels that quantize_im2col and dequant_epilogue launch, as
+# quant_conv.fused counts them.
+QUANTIZE_KERNELS = ("absmax_kernel", "quantize_im2col_kernel")
+EPILOGUE_KERNEL = "dequant_epilogue_kernel"
+# The kernels' element types (csrc/quant_conv.cu: kFloat32, kBFloat16).
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_lib = None
 
 
 def _round_up(x, multiple):
@@ -124,16 +149,29 @@ def conv_int32_plain(xq, weight_q, stride, padding):
     return acc.permute(0, 2, 3, 1).to(torch.int32)
 
 
+def conv_dims(x, kernel, stride, padding):
+    """(n, ho, wo, rows, k_pad) of the im2col product of NHWC ``x``: the
+    output's batch and sides, the column matrix's rows (n * ho * wo, at
+    least 17) and its K = kernel**2 * channels columns padded to a
+    multiple of 8."""
+    n, h, w, c = x.shape
+    ho = (h + 2 * padding - kernel) // stride + 1
+    wo = (w + 2 * padding - kernel) // stride + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"a {kernel}x{kernel} conv at padding {padding} "
+                         f"has no output on a {h}x{w} input")
+    return (n, ho, wo, max(n * ho * wo, INT_MM_MIN_ROWS),
+            _round_up(kernel * kernel * c, INT_MM_MULTIPLE))
+
+
 def im2col_int8(xq, kernel, stride, padding):
     """The (M, K_pad) int8 patch matrix of int-valued NHWC ``xq``: M = n *
     ho * wo rows (at least 17), K = kh * kw * cin columns in (kh, kw,
     cin) order, zero-padded to a multiple of 8. Returns (cols, (n, ho,
-    wo))."""
+    wo)). The plain version of quantize_im2col_kernel's writes."""
     n, h, w, c = xq.shape
-    ho = (h + 2 * padding - kernel) // stride + 1
-    wo = (w + 2 * padding - kernel) // stride + 1
+    _, ho, wo, rows, cols_k = conv_dims(xq, kernel, stride, padding)
     m, k = n * ho * wo, kernel * kernel * c
-    rows, cols_k = max(m, INT_MM_MIN_ROWS), _round_up(k, INT_MM_MULTIPLE)
     if kernel == 1 and stride == 1 and padding == 0 and (rows, cols_k) == (
             m, k):
         return xq.to(torch.int8).reshape(m, k), (n, ho, wo)
@@ -156,9 +194,9 @@ def im2col_int8(xq, kernel, stride, padding):
 
 def conv_int32_int_mm(xq, weight_mat, out_channels, kernel, stride,
                       padding):
-    """The int32 conv of int-valued NHWC ``xq`` as im2col plus one
-    ``torch._int_mm`` against ``weight_mat`` (:func:`conv_weight_matrix`);
-    counted in ``quant_conv.launches``."""
+    """The int32 conv of int-valued NHWC ``xq`` as the eager im2col plus
+    one ``torch._int_mm`` against ``weight_mat``
+    (:func:`conv_weight_matrix`); counted in ``quant_conv.launches``."""
     cols, (n, ho, wo) = im2col_int8(xq, kernel, stride, padding)
     acc = torch._int_mm(cols, weight_mat)
     quant_conv.launches += 1
@@ -172,37 +210,178 @@ def dequantize(acc, xs, weight_scale, out_dtype):
     return (acc * (xs * weight_scale)).to(out_dtype)
 
 
-def quant_conv_int32(x, weight_q, stride, padding, weight_mat=None,
-                     group=None):
-    """(int32 NHWC accumulator, 0-d float32 activation scale) of the int8
-    conv of NHWC ``x``: on a CUDA tensor im2col + ``torch._int_mm``
-    (``weight_mat``, built from ``weight_q`` when None); on a CPU tensor
-    the plain version. Any other device raises. ``group``: see
-    :func:`quantize_activation`."""
-    if x.device.type == "cpu":
-        return quant_conv_int32_plain(x, weight_q, stride, padding, group)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant_conv runs on CUDA or the CPU, not "
-                         f"{x.device}")
-    if weight_mat is None:
-        weight_mat = conv_weight_matrix(weight_q)
-    xq, xs = quantize_activation(x, group)
-    acc = conv_int32_int_mm(xq, weight_mat, weight_q.shape[0],
-                            weight_q.shape[-1], stride, padding)
-    return acc, xs
+def epilogue_mode(bias64, scale64, relu):
+    """The epilogue a module's arguments select: no ``bias64``, the
+    dequantisation; ``bias64`` alone, bias [+ ReLU]; both, the affine.
+    ``relu`` goes only with the bias."""
+    mode = (DEQUANTIZE if bias64 is None
+            else BIAS if scale64 is None else AFFINE)
+    if relu and mode != BIAS:
+        raise ValueError("relu follows only the bias epilogue")
+    if bias64 is None and scale64 is not None:
+        raise ValueError("the affine epilogue takes bias64 and scale64")
+    return mode
+
+
+def epilogue_plain(acc, xs, weight_scale, out_dtype, bias64=None,
+                   scale64=None, relu=False):
+    """The int32 accumulator to the conv's output in ``out_dtype`` by
+    eager passes, in the mode :func:`epilogue_mode` selects:
+
+    - :func:`dequantize`;
+    - ``bias64 + acc * (xs * scale)`` in float64, where the product of
+      two float32 values is exact, rounded once to float32 (XLA compiles
+      the JAX package's ``acc * (xs * scale) + bias`` into a fused
+      multiply-add, and that rounding decides the next conv's int8
+      values), then the ReLU, then the cast (OpenPose's ``conv``);
+    - the dequantised value in ``out_dtype``, then ``bias64 + value *
+      scale64`` in float64 with one rounding, cast to ``out_dtype``
+      (ArcFace's ``_quant_conv_affine``).
+
+    The plain version of dequant_epilogue_kernel."""
+    mode = epilogue_mode(bias64, scale64, relu)
+    if mode == BIAS:
+        y = torch.addcmul(bias64, acc.to(torch.float32),
+                          xs * weight_scale).to(torch.float32)
+        if relu:
+            y = torch.relu(y)
+        return y.to(out_dtype)
+    y = dequantize(acc, xs, weight_scale, out_dtype)
+    if mode == AFFINE:
+        y = torch.addcmul(bias64, y, scale64).to(out_dtype)
+    return y
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        from terran_tpu_torch.utils.cuda_build import load_library
+
+        lib = load_library(_SOURCE)
+        ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_float)
+        lib.quant_conv_absmax.argtypes = [ptr, i64, i32, ptr, ptr]
+        lib.quant_conv_im2col.argtypes = (
+            [ptr] + [i32] * 13 + [ptr, f32, f32, ptr, ptr, ptr])
+        lib.quant_conv_epilogue.argtypes = (
+            [ptr] + [i32] * 5 + [ptr] * 5 + [i32, ptr])
+        for fn in (lib.quant_conv_absmax, lib.quant_conv_im2col,
+                   lib.quant_conv_epilogue):
+            fn.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _dtype_code(t):
+    code = _DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise TypeError(f"no quant_conv kernel for {t.dtype}: float32 or "
+                        "bfloat16")
+    return code
+
+
+def _on(device):
+    """The guard for launches on ``device``: none where it is current."""
+    if device.index == torch.cuda.current_device():
+        return _NO_GUARD
+    return torch.cuda.device(device)
+
+
+_NO_GUARD = contextlib.nullcontext()
+
+
+def _launch(fn, device, *args):
+    """``fn(*args, stream)`` on ``device``'s current stream; raises on its
+    CUDA error."""
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
+
+
+def quantize_im2col(x, kernel, stride, padding, group=None):
+    """The kernels' quantisation of NHWC CUDA ``x`` for a ``kernel`` x
+    ``kernel`` conv: absmax_kernel's ``max|x|``, all-reduced over the
+    process ``group`` (see :func:`quantize_activation`), then
+    quantize_im2col_kernel's scale and column matrix. Returns (cols
+    (rows, K_pad) int8, scalars, (n, ho, wo)), ``scalars`` the float32
+    pair (``max|x|``, ``xs``); equal byte for byte to
+    :func:`quantize_activation` and :func:`im2col_int8`."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"no quant_conv kernel on {dev}")
+    if x.numel() == 0:
+        raise ValueError("the activation's max|x| needs an element")
+    x = x.contiguous()
+    code = _dtype_code(x)
+    n, ho, wo, rows, k_pad = conv_dims(x, kernel, stride, padding)
+    lib = _library()
+    scalars = torch.empty(2, dtype=torch.float32, device=dev)
+    cols = torch.empty((rows, k_pad), dtype=torch.int8, device=dev)
+    max_abs = scalars.data_ptr()
+    with _on(dev):
+        if group is not None:
+            _launch(lib.quant_conv_absmax, dev, x.data_ptr(), x.numel(),
+                    code, max_abs)
+            dist.all_reduce(scalars[:1], op=dist.ReduceOp.MAX, group=group)
+        _launch(lib.quant_conv_im2col, dev, x.data_ptr(), code, *x.shape,
+                kernel, stride, padding, ho, wo, rows, k_pad,
+                int(group is None), max_abs, QMAX_RECIPROCAL, SCALE_FLOOR,
+                max_abs + 4, cols.data_ptr())
+    quant_conv.fused.update(QUANTIZE_KERNELS)
+    return cols, scalars, (n, ho, wo)
+
+
+def dequant_epilogue(acc, scalars, dims, out_channels, weight_scale,
+                     out_dtype, bias64=None, scale64=None, relu=False):
+    """dequant_epilogue_kernel on the padded (rows, N_pad) int32 CUDA
+    product ``acc`` with the activation scale of :func:`quantize_im2col`'s
+    ``scalars``: its first prod(``dims``) rows and ``out_channels``
+    columns to a new ``dims + (out_channels,)`` tensor in ``out_dtype``,
+    equal to :func:`epilogue_plain` in the same mode."""
+    mode = epilogue_mode(bias64, scale64, relu)
+    if acc.dtype != torch.int32 or not acc.is_contiguous():
+        raise ValueError("the epilogue reads a contiguous int32 product")
+    if weight_scale.dtype != torch.float32:
+        raise TypeError(f"weight scales are float32, not "
+                        f"{weight_scale.dtype}")
+    for extra in (bias64, scale64):
+        if extra is not None and extra.dtype != torch.float64:
+            raise TypeError(f"the epilogue's bias and scale are float64 "
+                            f"copies, not {extra.dtype}")
+    dev = acc.device
+    out = torch.empty(tuple(dims) + (out_channels,), dtype=out_dtype,
+                      device=dev)
+    with _on(dev):
+        _launch(_library().quant_conv_epilogue, dev, acc.data_ptr(),
+                out.numel() // out_channels, acc.shape[1], out_channels,
+                mode, int(relu), scalars.data_ptr() + 4,
+                weight_scale.data_ptr(),
+                None if bias64 is None else bias64.data_ptr(),
+                None if scale64 is None else scale64.data_ptr(),
+                out.data_ptr(), _dtype_code(out))
+    quant_conv.fused[EPILOGUE_KERNEL] += 1
+    return out
 
 
 def quant_conv_int32_plain(x, weight_q, stride, padding, group=None):
-    """:func:`quant_conv_int32`'s plain version, on any device: the conv
-    of the int8 values in float64."""
+    """(int32 NHWC accumulator, 0-d float32 activation scale) of the int8
+    conv of NHWC ``x``, on any device: :func:`quantize_activation`
+    (``group``: see there), then the conv of the int8 values in
+    float64."""
     xq, xs = quantize_activation(x, group)
     return conv_int32_plain(xq, weight_q, stride, padding), xs
+
+
+def _check_device(x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"quant_conv runs on CUDA or the CPU, not "
+                         f"{x.device}")
 
 
 def conv_range(x, weight_q, stride, padding):
     """The ``terran::quant_conv`` profiler range (:data:`CONV_RANGE`) of
     one int8 conv of NHWC ``x`` with OIHW ``weight_q``, from quantisation
-    to dequantisation, or the shared no-op context when no profiler
+    to its epilogue, or the shared no-op context when no profiler
     records. It is named by the conv's own dims, so the work it stands
     for does not depend on how the conv is computed."""
     n, h, w, c = x.shape
@@ -210,19 +389,54 @@ def conv_range(x, weight_q, stride, padding):
                           weight_q.shape[-1], stride, padding)
 
 
+def quant_conv_kernels(x, weight_q, weight_scale, stride, padding,
+                       out_dtype, weight_mat=None, group=None, bias64=None,
+                       scale64=None, relu=False):
+    """:func:`quant_conv` on a CUDA tensor: :func:`quantize_im2col`
+    (absmax_kernel, [the group's all-reduce,] quantize_im2col_kernel),
+    ``torch._int_mm`` against ``weight_mat`` (built from ``weight_q`` when
+    None) and :func:`dequant_epilogue`."""
+    if weight_mat is None:
+        weight_mat = conv_weight_matrix(weight_q)
+    cols, scalars, dims = quantize_im2col(x, weight_q.shape[-1], stride,
+                                          padding, group)
+    acc = torch._int_mm(cols, weight_mat)
+    quant_conv.launches += 1
+    return dequant_epilogue(acc, scalars, dims, weight_q.shape[0],
+                            weight_scale, out_dtype, bias64, scale64, relu)
+
+
+def quant_conv_plain(x, weight_q, weight_scale, stride, padding, out_dtype,
+                     weight_mat=None, group=None, bias64=None, scale64=None,
+                     relu=False):
+    """:func:`quant_conv_kernels`' plain version, on any device: the
+    float64 conv of the int8 values and :func:`epilogue_plain`
+    (``weight_mat`` is not read)."""
+    acc, xs = quant_conv_int32_plain(x, weight_q, stride, padding, group)
+    return epilogue_plain(acc, xs, weight_scale, out_dtype, bias64, scale64,
+                          relu)
+
+
 def quant_conv(x, weight_q, weight_scale, stride, padding, out_dtype,
-               weight_mat=None, group=None):
+               weight_mat=None, group=None, bias64=None, scale64=None,
+               relu=False):
     """int8 conv of NHWC ``x`` with a dynamic per-tensor activation scale,
-    dequantised and cast to ``out_dtype`` (``models/quant.py::quant_conv``),
-    inside one :func:`conv_range`. ``quant_conv.launches`` counts its
-    ``torch._int_mm`` calls."""
+    dequantised to ``out_dtype`` (``models/quant.py::quant_conv``), with
+    the bias [+ ReLU] or the affine of :func:`epilogue_plain` where
+    ``bias64`` [and ``scale64``] are given, inside one :func:`conv_range`:
+    on a CUDA tensor :func:`quant_conv_kernels`, on a CPU tensor
+    :func:`quant_conv_plain`; any other device raises.
+    ``quant_conv.launches`` counts its ``torch._int_mm`` calls,
+    ``quant_conv.fused`` the kernels' launches by name."""
+    _check_device(x)
+    conv = quant_conv_kernels if x.device.type == "cuda" else quant_conv_plain
     with conv_range(x, weight_q, stride, padding):
-        acc, xs = quant_conv_int32(x, weight_q, stride, padding, weight_mat,
-                                   group)
-        return dequantize(acc, xs, weight_scale, out_dtype)
+        return conv(x, weight_q, weight_scale, stride, padding, out_dtype,
+                    weight_mat, group, bias64, scale64, relu)
 
 
 quant_conv.launches = 0
+quant_conv.fused = collections.Counter()
 
 
 class QuantConv2d(nn.Module):
@@ -249,16 +463,12 @@ class QuantConv2d(nn.Module):
     def _derive_matrix(module, _incompatible_keys):
         module.weight_mat = conv_weight_matrix(module.weight_q)
 
-    def accumulate(self, x):
-        """(int32 accumulator, activation scale): :func:`quant_conv_int32`."""
-        return quant_conv_int32(x, self.weight_q, self.stride, self.padding,
-                                self.weight_mat, self.group)
-
-    def forward(self, x, out_dtype):
-        """:func:`quant_conv` of ``x``, cast to ``out_dtype``."""
+    def forward(self, x, out_dtype, bias64=None, scale64=None, relu=False):
+        """:func:`quant_conv` of ``x`` to ``out_dtype``, with the epilogue
+        that ``bias64``, ``scale64`` and ``relu`` select."""
         return quant_conv(x, self.weight_q, self.weight_scale, self.stride,
                           self.padding, out_dtype, self.weight_mat,
-                          self.group)
+                          self.group, bias64, scale64, relu)
 
 
 def reduce_activation_scales(model, group):

@@ -759,12 +759,18 @@ class PerceptionPipeline:
         next ``warmup`` captures at the new value. Returns the number of
         device programs run."""
         if self.device.type == "cuda":
+            from terran_tpu_torch.models import quant
             from terran_tpu_torch.ops import fused_peaks, nms
             from terran_tpu_torch.utils.cuda_build import load_libraries
 
-            load_libraries("fused_peaks.cu", "nms.cu")  # nvcc in parallel
+            int8 = "int8" in (self.embed_precision, self.pose_precision)
+            # nvcc in parallel
+            load_libraries("fused_peaks.cu", "nms.cu",
+                           *(("quant_conv.cu",) if int8 else ()))
             fused_peaks._library()
             nms._library()
+            if int8:
+                quant._library()
 
         if self.mesh is not None:
             batch = -(-batch // self.mesh.size)

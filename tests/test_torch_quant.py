@@ -14,9 +14,11 @@ Every comparison here is bit for bit, tolerance 0:
   whose accumulators exceed 2**24 (their conversion to float32 rounds)
   and one whose activation maximum makes ``m * float32(1/127)``, XLA's
   rewrite of ``m / 127.0``, differ from the division;
-- the card's path (im2col + ``torch._int_mm``, which runs on this CPU
-  too) equals the plain float64 conv, so the im2col indexing, the K and
-  N padding and the row padding are held before the card sees them.
+- the eager im2col + ``torch._int_mm`` (which runs on this CPU too)
+  equals the plain float64 conv, so the im2col indexing, the K and N
+  padding and the row padding are held here; on the card,
+  ``test_torch_quant_kernels.py`` holds csrc/quant_conv.cu's kernels to
+  these eager passes.
 """
 
 import numpy as np
@@ -235,7 +237,7 @@ def test_activation_scale_is_the_jitted_reciprocal_product():
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_int_mm_path_matches_plain(shape):
-    """The card's im2col + torch._int_mm against the float64 conv, int32
+    """The eager im2col + torch._int_mm against the float64 conv, int32
     for int32, with post-ReLU (non-negative) activations as the models
     feed them; one output row only, padded to the 17 rows _int_mm needs
     on CUDA."""
