@@ -25,7 +25,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
    strided [..., :18] view of the model's 19 channels, a 46x80 field
    (short side 368) at K=512 and a 132x264 field of 1089 tiles; hold the
    merge kernel alone against ``merge_candidates`` on the scan kernel's
-   output; time the call with CUDA events at K=16, 32 and 128;
+   output; time the call with CUDA events at K=16, 32 and 128 (BODY_25's
+   25-part view is held in phase 4, ``body25_peaks_phase``);
    then hold the NMS kernels against their plain version: all five
    outputs of ``nms_fixed`` equal (NaNs counted equal) on random boxes
    (N=8, A=12,740 anchors, K = 64, 65, 100, 256 and 4096), the model's
@@ -116,6 +117,15 @@ Phases (any failure raises, exits nonzero and prints no result line):
    pipeline with ``embed_precision='int8', pose_precision='int8'``
    (warmup, one batch, a dispatch under the sync check, 3 timed sweeps,
    each kernel exactly 2 launches a batch, the _int_mm calls a batch);
+   then BODY_25 (``body25_phase``): ``PerceptionPipeline(pose='body25')``
+   at published widths, pose short side 368, no recognizer, bf16:
+   ``process_stream`` over the 8 batches before ``warmup`` with the
+   kernels' launch counts set to 0 just before it (each pair 2 launches a
+   batch, 25-part peak tables for every frame, peaks found, poses of 25
+   keypoints); the peak kernel against its plain version on the strided
+   [..., :25] view of a (8, 46, 81, 78) box-blurred noise field and of
+   the model's own output (132 tiles a plane) at K=16, 128 and 512 (the
+   last holds every peak of the noise field), timed at K=16; then ``warmup`` and 3 timed sweeps, every call a replay;
    after the host plan, this slice's main path, scale-out over
    torch.distributed (``scaleout_phase``): ``create_mesh()`` brings up a
    world-1 NCCL group on cuda:0 over a loopback store; the pipeline at
@@ -143,7 +153,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
    the kernels' device time at K=16, 32 and 128, and the CUDA kernels of
    one NMS suppression call (2: mask and sweep) with each one's device
    time at K=64, 256 and 1024; the kernel launches of the warm pipeline's
-   ``process_stream`` and of the concurrent streams, from the profiler's
+   ``process_stream``, of the concurrent streams and of the BODY_25
+   pipeline's ``process_stream``, from the profiler's
    kernel records of one sweep each like the timed ones (a replayed CUDA
    graph's kernels are recorded there, and the kernels' Python counters
    do not see them; the profiler comes last because it stays attached to
@@ -159,7 +170,8 @@ Phases (any failure raises, exits nonzero and prints no result line):
    pair a batch; the global
    timer counts 2 regions and a second ``start_trace`` raises;
 7. JSON lines describing the pipeline, its host plan, the streams, the
-   int8 trunks and their conv shapes, the tiled call, the scale-out
+   int8 trunks and their conv shapes, the BODY_25 pipeline, the tiled
+   call, the scale-out
    phase, recognition without landmarks, the store phase, the
    observability phase and the kernels, then the card's line, then the
    result line.
@@ -913,6 +925,197 @@ def pipeline_phase(params, batches, card, task_ms):
             "upload_bytes_per_frame": upload_per_frame}, pipe
 
 
+# BODY_25 (models/body25.py) at its published widths and input: pose
+# short side 368, so a 1080p frame's 46x81 field, 12x11 = 132 tiles a
+# plane, 25 parts read in place from the 78-channel output.
+BODY25_SIDE = 368
+BODY25_FIELD = (46, 81)
+BODY25_KS = (16, 128, 512)
+
+
+def body25_peaks_phase(pipe, batch, card):
+    """The fused peak kernel on BODY_25's own view against its plain
+    version, exact: the strided [..., :25] of a (BATCH, 46, 81, 78) field
+    (a noise field's 3x3 box blur, so that peaks are a few hundred a
+    plane and some near ties) and of the model's own output on ``batch``
+    at the pipeline's pose resize, at K = 16 (the pipeline's), 128 and
+    512, which holds every peak of the noise field; the call at K=16
+    timed beside its bound. Returns its fields."""
+    import torch
+
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops.pose_decode import BODY_25, normalize_images
+    from terran_tpu_torch.ops.resize import resize_bilinear_u8, resized_shape
+
+    dev = pipe.device
+    parts = BODY_25.parts
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    field = torch.randn((BATCH, 78) + BODY25_FIELD, generator=gen,
+                        device=dev)
+    field = torch.nn.functional.avg_pool2d(field, 3, stride=1, padding=1)
+    field = field.permute(0, 2, 3, 1).contiguous()
+    h, w = BODY25_FIELD
+    ph, pw, _ = resized_shape(*FRAME, BODY25_SIDE)
+    resized = resize_bilinear_u8(torch.as_tensor(batch, device=dev), ph, pw)
+    with torch.inference_mode():
+        pafs, heat = pipe.pose_model(normalize_images(
+            resized, pipe.pose_model.input_scale).to(
+                pipe.pose_model.compute_dtype))
+        model_out = torch.cat([heat, pafs], dim=-1).float()
+    if tuple(model_out.shape) != (BATCH, h, w, 78):
+        raise AssertionError(f"BODY_25's output at the pose resize is "
+                             f"{tuple(model_out.shape)}, expected "
+                             f"{(BATCH, h, w, 78)}")
+    if fp.num_tiles(h, w) != 132:
+        raise AssertionError(f"{fp.num_tiles(h, w)} tiles on {h}x{w}")
+    fields = {}
+    for label, out in (("box-blurred noise", field),
+                       ("model output", model_out)):
+        view = out[..., :parts]  # in place: 78 floats between pixels
+        if view.is_contiguous() or view.stride(-2) != 78:
+            raise AssertionError("the 25-part case must pass the view")
+        for k in BODY25_KS:
+            got = fp.find_peaks_fused(view, 0.1, k)
+            expected = fp.find_peaks_fused_plain(view, 0.1, k)
+            torch.cuda.synchronize()
+            assert_same(got, expected, f"BODY_25 {label} K={k}")
+            if (got[0].shape != (BATCH, parts, k, 2)
+                    or not bool(got[2].any())
+                    or (out is field and k == 512 and bool(got[3].any()))):
+                raise AssertionError(f"BODY_25 {label} K={k}: "
+                                     f"{tuple(got[0].shape)}, "
+                                     f"{int(got[2].sum())} peaks")
+            fields[f"{label} K={k}"] = {
+                "peaks": int(got[2].sum()),
+                "overflowed_parts": int(got[3].sum())}
+            log(f"kernel == plain: BODY_25 {label}, strided [..., :25] of "
+                f"{tuple(out.shape)} K={k}: {int(got[2].sum())} peaks "
+                f"kept, {int(got[3].sum())} parts overflowed")
+    view = model_out[..., :parts]
+    ms = time_ms(lambda: fp.find_peaks_fused(view, 0.1, BODY25_KS[0]))
+    bound, by = kernel_bound_ms(BATCH * parts, h, w, BODY25_KS[0])
+    log(f"timing at BODY_25's shape ({card}): find_peaks_fused "
+        f"{ms:.4f} ms a call at K={BODY25_KS[0]} on {BATCH * parts} planes "
+        f"of {h}x{w}; bound {bound:.5f} ms ({by})")
+    return {"cases": fields, "ms_k16": ms, "bound_ms_k16": bound,
+            "bound_by_k16": by}
+
+
+def body25_phase(rf_params, batches, card):
+    """``PerceptionPipeline(pose='body25')`` at published widths, bf16,
+    the ``body25-pose-offline-1080p`` cell's settings (PIPE_CONFIG, pose
+    short side 368, no recognizer), with weights drawn from the
+    benchmark's reference table: first ``process_stream`` over
+    ``batches`` before ``warmup``, every program eager, with the kernels'
+    launch counts set to 0 just before it: each pair exactly 2 launches a
+    batch, peaks found, poses of 25 keypoints; then the peak kernel on
+    BODY_25's view (``body25_peaks_phase``); then ``warmup`` and
+    PIPE_SWEEPS timed sweeps, every program call a replay (their kernels
+    counted in phase 6). Returns its fields and the warm pipeline."""
+    import numpy as np
+    import torch
+
+    import terran_tpu_torch.pipeline as program
+    from terran_tpu_torch.models import body25
+    from terran_tpu_torch.ops import fused_peaks as fp
+    from terran_tpu_torch.ops import nms
+    from terran_tpu_torch.ops.pose_decode import BODY_25
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+    from terran_tpu_torch.utils.convert import convert_body25
+    from terran_tpu_torch.utils.profiling import StageTimer
+    from torch_body25_weights import body25_state_dict
+
+    sd = body25_state_dict(np.random.default_rng(SEED + 5),
+                           body25.TRUNK_WIDTHS, body25.STAGE_WIDTHS)
+    timer = StageTimer()
+    pipe = PerceptionPipeline(**dict(
+        PIPE_CONFIG, det_params=rf_params, pose_params=convert_body25(sd),
+        pose="body25", with_embeddings=False, pose_short_side=BODY25_SIDE,
+        timer=timer))
+    if (not isinstance(pipe.pose_model, body25.Body25Model)
+            or pipe.pose_model.compute_dtype != torch.bfloat16
+            or pipe.skeleton is not BODY_25):
+        raise AssertionError("the BODY_25 pipeline must run Body25Model "
+                             "in bf16 with BODY_25's skeleton")
+
+    def check(outs):
+        for out in outs:
+            if len(out["poses"]) != BATCH:
+                raise AssertionError("a BODY_25 batch lost frames")
+            for people in out["poses"]:
+                for person in people:
+                    if person["keypoints"].shape != (BODY_25.parts, 3):
+                        raise AssertionError("a BODY_25 pose without 25 "
+                                             "keypoints")
+
+    tables = []
+    original = recorded_assembly(tables)
+    try:
+        fp.find_peaks_fused.launches = 0
+        nms.suppress.launches = 0
+        calls = dict(pipe.graph_calls)
+        eager = list(pipe.process_stream(batches, depth=PIPE_DEPTH))
+        torch.cuda.synchronize()
+    finally:
+        program.assemble_humans = original
+    launches = {"fused_peaks": fp.find_peaks_fused.launches,
+                "nms": 2 * nms.suppress.launches}
+    eager_calls = pipe.graph_calls["eager"] - calls["eager"]
+    check(eager)
+    if eager_calls < 2 * len(batches) or pipe.graph_calls["replayed"]:
+        raise AssertionError(f"BODY_25 before warmup: {pipe.graph_calls}")
+    check_launches(launches, len(batches), "the BODY_25 pipeline (eager)")
+    if len(tables) != BATCH * len(batches) or any(
+            t[0].shape[0] != BODY_25.parts for t in tables):
+        raise AssertionError("the assembly did not get 25-part tables for "
+                             "every frame")
+    valid = sum(int(t[2].sum()) for t in tables)
+    humans = sum(len(p) for out in eager for p in out["poses"])
+    if not valid:
+        raise AssertionError("BODY_25 found no peak")
+    log(f"BODY_25 pipeline before warmup ({card}): {len(batches)} batches "
+        f"of {BATCH} eager, launches per batch "
+        + ", ".join(f"{k} {v / len(batches):g}" for k, v in launches.items())
+        + f"; {valid / (BATCH * len(batches) * BODY_25.parts):.2f} valid "
+        f"peaks a part a frame, {humans} humans")
+
+    peaks = body25_peaks_phase(pipe, batches[0], card)
+
+    start = time.perf_counter()
+    programs = pipe.warmup(BATCH, *FRAME)
+    warm_s = time.perf_counter() - start
+    for _ in pipe.process_stream(batches[:2], depth=PIPE_DEPTH):
+        pass
+    timer.reset()
+    graph_calls = dict(pipe.graph_calls)
+    fps = []
+    for _ in range(PIPE_SWEEPS):
+        start = time.perf_counter()
+        outs = list(pipe.process_stream(batches, depth=PIPE_DEPTH))
+        fps.append(BATCH * PIPE_BATCHES / (time.perf_counter() - start))
+        check(outs)
+    swept = PIPE_SWEEPS * PIPE_BATCHES
+    graph_calls = check_replayed(pipe, graph_calls, swept, (0, 0),
+                                 "the BODY_25 pipeline's sweeps")
+    fps_median = sorted(fps)[len(fps) // 2]
+    pose_ms = 1e3 * timer.times["pose_device"] / timer.counts["pose_device"]
+    log(f"BODY_25 pipeline ({card}): {PIPE_SWEEPS} process_stream sweeps "
+        f"of {PIPE_BATCHES} batches x {BATCH} x {FRAME[0]}x{FRAME[1]}, "
+        f"pose short side {BODY25_SIDE}, bf16: warmup {programs} programs "
+        f"in {warm_s:.3f} s; frames/s per sweep "
+        + ", ".join(f"{f:.2f}" for f in fps)
+        + f"; median {fps_median:.2f}; pose_device {pose_ms:.3f} ms a "
+        f"call; device-program calls over the sweeps {graph_calls}")
+    return {"eager_launches_per_batch": {
+                k: v / len(batches) for k, v in launches.items()},
+            "valid_peaks_per_part_frame":
+                valid / (BATCH * len(batches) * BODY_25.parts),
+            "humans": humans, "peaks": peaks, "fps": fps,
+            "fps_median": fps_median, "pose_device_ms": pose_ms,
+            "warmup_programs": programs, "warmup_s": warm_s,
+            "batches": PIPE_BATCHES, "graph_calls": graph_calls}, pipe
+
+
 def recorded_assembly(tables):
     """Install a wrapper on the pipeline's ``assemble_humans`` that appends
     copies of every peak and limb table it is handed to ``tables``.
@@ -1326,19 +1529,18 @@ def synthetic_decode_outputs(rng, k, frames):
     valid slots (30% of those pairs)."""
     import numpy as np
 
-    from terran_tpu_torch.ops.pose_decode import (
-        LIMBSEQ, NUM_LIMBS, NUM_PARTS,
-    )
+    from terran_tpu_torch.ops.pose_decode import COCO_18
 
+    parts, limbs = COCO_18.parts, COCO_18.limbs
     out = []
     for _ in range(frames):
-        coords = rng.integers(0, 1000, (NUM_PARTS, k, 2)).astype(np.int32)
-        scores = rng.uniform(0.1, 1.0, (NUM_PARTS, k)).astype(np.float32)
-        counts = rng.binomial(k, 0.9, NUM_PARTS)
+        coords = rng.integers(0, 1000, (parts, k, 2)).astype(np.int32)
+        scores = rng.uniform(0.1, 1.0, (parts, k)).astype(np.float32)
+        counts = rng.binomial(k, 0.9, parts)
         valid = np.arange(k)[None, :] < counts[:, None]
-        reg = rng.uniform(-0.5, 1.0, (NUM_LIMBS, k, k)).astype(np.float32)
-        accept = rng.uniform(size=(NUM_LIMBS, k, k)) < 0.3
-        for limb, (src, dst) in enumerate(LIMBSEQ):
+        reg = rng.uniform(-0.5, 1.0, (limbs, k, k)).astype(np.float32)
+        accept = rng.uniform(size=(limbs, k, k)) < 0.3
+        for limb, (src, dst) in enumerate(COCO_18.limbseq):
             accept[limb] &= valid[src][:, None] & valid[dst][None, :]
         out.append((coords, scores, valid, reg, accept))
     return out
@@ -3443,6 +3645,9 @@ def main():
     # The pipeline's CUDA graphs against its eager launches.
     graphs = graphs_phase(pipe_params, card)
     pipe_int8 = pipeline_int8_phase(pipe_params, batches, card, pipe)
+    # BODY_25 on the pose path: its pipeline, eager then replayed, and the
+    # peak kernel on its 25-part view.
+    body25_run, body25_pipe = body25_phase(rf_params, batches, card)
     # This slice's main path: concurrent streams with tracking through
     # the warm pipeline.
     streams = streams_phase(warm_pipe, card)
@@ -3568,16 +3773,20 @@ def main():
     # replayed graph), every program call a replay.
     from terran_tpu_torch.io.streams import MultiStreamPerception
 
-    for what, fields, sweep in (
-            ("the pipeline", pipe, lambda: list(warm_pipe.process_stream(
-                batches, depth=PIPE_DEPTH))),
-            ("streams", streams, lambda: list(MultiStreamPerception(
-                warm_pipe, stream_sources(), batch_size=BATCH,
-                track=True)))):
-        calls, since = dict(warm_pipe.graph_calls), dispatched(warm_pipe)
+    for what, fields, swept, sweep in (
+            ("the pipeline", pipe, warm_pipe,
+             lambda: list(warm_pipe.process_stream(batches,
+                                                   depth=PIPE_DEPTH))),
+            ("streams", streams, warm_pipe, lambda: list(
+                MultiStreamPerception(warm_pipe, stream_sources(),
+                                      batch_size=BATCH, track=True))),
+            ("the BODY_25 pipeline", body25_run, body25_pipe,
+             lambda: list(body25_pipe.process_stream(batches,
+                                                     depth=PIPE_DEPTH)))):
+        calls, since = dict(swept.graph_calls), dispatched(swept)
         fields["launches"] = kernel_launches(sweep)
         # kernel_launches runs the sweep three times, one under the record.
-        check_replayed(warm_pipe, calls, 3 * fields["batches"], since, what)
+        check_replayed(swept, calls, 3 * fields["batches"], since, what)
         check_launches(fields["launches"], fields["batches"], what)
     log(f"kernel launches per batch, profiler records of one sweep "
         f"({card}): pipeline "
@@ -3585,8 +3794,11 @@ def main():
                     for k, v in pipe["launches"].items())
         + "; streams "
         + ", ".join(f"{k} {v / streams['batches']:g}"
-                    for k, v in streams["launches"].items()))
-    del warm_pipe, batches
+                    for k, v in streams["launches"].items())
+        + "; BODY_25 "
+        + ", ".join(f"{k} {v / body25_run['batches']:g}"
+                    for k, v in body25_run["launches"].items()))
+    del warm_pipe, body25_pipe, batches
 
     # The package's runtime and tracing names, last: a trace of the warm
     # pipeline through start_trace/stop_trace.
@@ -3655,6 +3867,7 @@ def main():
         "card": card,
     }}))
     log(json.dumps({"graphs": dict(graphs, card=card)}))
+    log(json.dumps({"body25": dict(body25_run, card=card)}))
     log(json.dumps({"int8_convs": int8_convs}))
     log(json.dumps({"int8_conv_launches": int8_launches}))
     log(json.dumps({"tiled": dict(tiled, card=card)}))

@@ -8,7 +8,8 @@ from typing import NamedTuple
 from terran_tpu_torch.models.retinaface import RetinaFace
 from terran_tpu_torch.models.arcface import FaceResNet100
 from terran_tpu_torch.models.openpose import BodyPoseModel
-from terran_tpu_torch.models import arcface, openpose, vit
+from terran_tpu_torch.models import arcface, body25, openpose, vit
+from terran_tpu_torch.ops.pose_decode import BODY_25, COCO_18
 from terran_tpu_torch.runtime import PARAMS_KEEP_F32, cast_params_for_compute
 from terran_tpu_torch.utils.convert import as_state_dict
 
@@ -17,12 +18,15 @@ class Family(NamedTuple):
     """``model``: built by ``model.from_state_dict(state_dict, dtype)``.
     ``int8``: (twin, quantiser) or None, built as ``twin(dtype)`` with
     ``quantiser(state_dict, dtype)``. ``checkpoint``: the task class whose
-    checkpoint the store holds, or None. ``recognizer``: embeds faces."""
+    checkpoint the store holds, or None. ``recognizer``: embeds faces.
+    ``skeleton``: a pose family's parts and limbs
+    (``ops.pose_decode.Skeleton``), None for the others."""
 
     model: type
     int8: tuple = None
     checkpoint: str = None
     recognizer: bool = False
+    skeleton: object = None
 
 
 FAMILIES = {
@@ -34,11 +38,16 @@ FAMILIES = {
         "terran_tpu_torch.face.recognition.ArcFaceRecognizer", True),
     "openpose": Family(
         BodyPoseModel, (openpose.Int8BodyPoseModel, openpose.quantize_params),
-        "terran_tpu_torch.pose.openpose.OpenPoseEstimator"),
+        "terran_tpu_torch.pose.openpose.OpenPoseEstimator",
+        skeleton=COCO_18),
     # The ViT of insightface's arcface_torch (weights: convert_vit_l).
     "vit_l": Family(vit.ViTRecognizer, recognizer=True),
+    # OpenPose's BODY_25 (weights: convert_body25).
+    "body25": Family(body25.Body25Model, skeleton=BODY_25),
 }
 RECOGNIZERS = tuple(name for name, f in FAMILIES.items() if f.recognizer)
+POSE_FAMILIES = tuple(name for name, f in FAMILIES.items()
+                      if f.skeleton is not None)
 
 
 def load_model(family, params, dtype, device, precision="native"):

@@ -75,7 +75,10 @@ def _layer_specs():
 
 
 class BodyPoseModel(nn.Module):
-    """(N, H, W, 3) -> (pafs, heatmaps) NHWC tensors at 1/8 resolution."""
+    """(N, H, W, 3) RGB ``x / 255 - 0.5`` -> (pafs, heatmaps) NHWC tensors
+    at 1/8 resolution."""
+
+    input_scale = 255.0
 
     def __init__(self):
         super().__init__()
@@ -160,6 +163,8 @@ class Int8BodyPoseModel(nn.Module):
     same call surface and output layout, (N, H, W, 3) -> NHWC (pafs,
     heatmaps). Its state dict comes from :func:`quantize_params` (or
     ``params_from_jax`` of the JAX package's ``quantize_params`` tree)."""
+
+    input_scale = BodyPoseModel.input_scale
 
     def __init__(self, compute_dtype=torch.float32):
         super().__init__()

@@ -65,8 +65,9 @@ def _bind(lib):
     lib.assemble_humans.restype = ctypes.c_int
     lib.assemble_humans.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_int,
+        ctypes.c_void_p,
     ]
     return lib
 
@@ -127,10 +128,13 @@ def greedy_connections_native(reg_scores, accept, count_src, count_dst):
 
 
 def assemble_humans_native(peak_scores, counts, offsets, reg_scores, accept,
-                           limbseq, human_threshold=0.4, max_humans=256):
-    """C++ human assembly for one image -> the (n, 20) humans array in
-    the reference layout (18 global peak ids or -1, score sum, keypoint
-    count)."""
+                           limbseq, starts, human_threshold=0.4,
+                           max_humans=256):
+    """C++ human assembly for one image -> the (n, P + 2) humans array in
+    the reference layout (P = ``peak_scores``' parts: global peak ids or
+    -1, then score sum, keypoint count). ``limbseq`` (L, 2) and
+    ``starts`` (L,), which limbs may start a human, are a pose family's
+    (``ops.pose_decode.Skeleton``)."""
     lib = load()
     num_limbs, k, _ = reg_scores.shape
     num_parts = peak_scores.shape[0]
@@ -138,6 +142,7 @@ def assemble_humans_native(peak_scores, counts, offsets, reg_scores, accept,
             or accept.shape != reg_scores.shape
             or len(counts) != num_parts or len(offsets) != num_parts
             or limbseq.shape != (num_limbs, 2)
+            or np.shape(starts) != (num_limbs,)
             or int(np.max(limbseq)) >= num_parts
             or int(np.max(counts, initial=0)) > k):
         raise ValueError("inconsistent shapes for the assembly")
@@ -147,10 +152,11 @@ def assemble_humans_native(peak_scores, counts, offsets, reg_scores, accept,
     rg = _contiguous(reg_scores, np.float32)
     ac = _contiguous(accept, np.uint8)
     ls = _contiguous(limbseq, np.int32)
-    out = np.zeros((max_humans, 20), dtype=np.float64)
+    st = _contiguous(starts, np.uint8)
+    out = np.zeros((max_humans, num_parts + 2), dtype=np.float64)
     n = lib.assemble_humans(
         ps.ctypes.data, cn.ctypes.data, of.ctypes.data, rg.ctypes.data,
-        ac.ctypes.data, ls.ctypes.data, num_parts, num_limbs, k,
-        float(human_threshold), max_humans, out.ctypes.data,
+        ac.ctypes.data, ls.ctypes.data, st.ctypes.data, num_parts,
+        num_limbs, k, float(human_threshold), max_humans, out.ctypes.data,
     )
     return out[:n]

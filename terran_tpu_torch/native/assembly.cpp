@@ -1,7 +1,9 @@
 // Native host code for the OpenPose assembly tail: greedy limb matching
 // and incremental human merging.
 //
-// A copy of terran_tpu/native/assembly.cpp. The stages are sequential,
+// The port of terran_tpu/native/assembly.cpp, with the part count and the
+// limbs that may start a human as arguments, so that one build assembles
+// both the COCO model's 18 parts and BODY_25's 25. The stages are sequential,
 // data-dependent host work (the reference openpose/wrapper.py:335-478);
 // the Python version in terran_tpu_torch/pose/assembly.py is kept as the
 // reference and the fallback, and the two are tested equal.
@@ -73,18 +75,23 @@ int greedy_connections(const float* reg, const uint8_t* accept, int k,
 //   reg:         (num_limbs x k x k)      limb scores
 //   accept:      (num_limbs x k x k)      acceptance flags
 //   limbseq:     (num_limbs x 2)          0-based part ids per limb
+//   starts:      (num_limbs)              whether a limb matching no human
+//                                         may start one (COCO-18: all but
+//                                         the last two; BODY_25: all but
+//                                         18 and 19)
 // Output:
-//   humans_out:  (max_humans x 20) row-major; first 18 entries are global
-//                peak ids (or -1), then score sum, then keypoint count —
-//                the reference layout (wrapper.py:368-380).
+//   humans_out:  (max_humans x (num_parts + 2)) row-major; first num_parts
+//                entries are global peak ids (or -1), then score sum, then
+//                keypoint count — the reference layout (wrapper.py:368-380).
 // Returns the number of surviving humans.
 int assemble_humans(const float* peak_scores, const int* counts,
                     const int* offsets, const float* reg,
                     const uint8_t* accept, const int* limbseq,
-                    int num_parts, int num_limbs, int k,
-                    double human_threshold, int max_humans,
+                    const uint8_t* starts, int num_parts, int num_limbs,
+                    int k, double human_threshold, int max_humans,
                     double* humans_out) {
-    const int HUMAN_LEN = 20;
+    const int HUMAN_LEN = num_parts + 2;
+    const int SCORE = num_parts, COUNT = num_parts + 1;
     std::vector<std::vector<double>> humans;
     std::vector<double> conns(static_cast<size_t>(k) * 3);
 
@@ -128,34 +135,34 @@ int assemble_humans(const float* peak_scores, const int* counts,
                 std::vector<double>& human = humans[match1];
                 if (human[kpid_dst] != peak_dst) {
                     human[kpid_dst] = peak_dst;
-                    human[19] += 1;
-                    human[18] += dst_score + score;
+                    human[COUNT] += 1;
+                    human[SCORE] += dst_score + score;
                 }
             } else if (match2 >= 0) {
                 std::vector<double>& h1 = humans[match1];
                 std::vector<double>& h2 = humans[match2];
                 bool overlapping = false;
-                for (int p = 0; p < 18; ++p) {
+                for (int p = 0; p < num_parts; ++p) {
                     if (h1[p] >= 0 && h2[p] >= 0) { overlapping = true; break; }
                 }
                 if (!overlapping) {
                     // Merge disjoint part sets (+1 compensates the -1
                     // absence marker, reference wrapper.py:432-442).
-                    for (int p = 0; p < 18; ++p) h1[p] += h2[p] + 1;
-                    h1[18] += h2[18] + score;
-                    h1[19] += h2[19];
+                    for (int p = 0; p < num_parts; ++p) h1[p] += h2[p] + 1;
+                    h1[SCORE] += h2[SCORE] + score;
+                    h1[COUNT] += h2[COUNT];
                     humans.erase(humans.begin() + match2);
                 } else {
                     h1[kpid_dst] = peak_dst;
-                    h1[19] += 1;
-                    h1[18] += dst_score + score;
+                    h1[COUNT] += 1;
+                    h1[SCORE] += dst_score + score;
                 }
-            } else if (match1 < 0 && limb < 17) {
+            } else if (match1 < 0 && starts[limb]) {
                 std::vector<double> human(HUMAN_LEN, -1.0);
                 human[kpid_src] = peak_src;
                 human[kpid_dst] = peak_dst;
-                human[19] = 2;
-                human[18] = src_score + dst_score + score;
+                human[COUNT] = 2;
+                human[SCORE] = src_score + dst_score + score;
                 humans.push_back(std::move(human));
             }
         }
@@ -163,7 +170,8 @@ int assemble_humans(const float* peak_scores, const int* counts,
 
     int written = 0;
     for (const auto& human : humans) {
-        if (human[19] >= 4 && human[18] / human[19] >= human_threshold) {
+        if (human[COUNT] >= 4 &&
+            human[SCORE] / human[COUNT] >= human_threshold) {
             if (written >= max_humans) break;
             std::memcpy(humans_out + static_cast<size_t>(written) * HUMAN_LEN,
                         human.data(), HUMAN_LEN * sizeof(double));

@@ -5,13 +5,17 @@ on the device into fixed-size masked tensors (reference per-image loop:
 openpose/wrapper.py:226-366), and only the greedy matching and human
 assembly run on the host (``terran_tpu_torch.pose.assembly``).
 
-- **Peaks** (wrapper.py:235-262): 4-neighbour local maxima over each of the
-  18 part heatmaps, `>=` comparisons with a 1px interior margin and score
+- **Peaks** (wrapper.py:235-262): 4-neighbour local maxima over each part
+  heatmap, `>=` comparisons with a 1px interior margin and score
   threshold, extracted into ``max_peaks`` slots per part in row-major order
   (the reference's ``torch.nonzero`` order) with a validity mask.
-- **Limb scores** (wrapper.py:274-333): for all 19 limbs at once, the
+- **Limb scores** (wrapper.py:274-333): for all limbs at once, the
   10-midpoint line integral of the PAF field between every (src, dst) peak
   pair, the length-regularised score, and the two acceptance criteria.
+
+The parts and limbs are a pose family's :class:`Skeleton`: the COCO
+model's 18 parts and 19 limbs (:data:`COCO_18`, the default) or BODY_25's
+25 and 26 (:data:`BODY_25`).
 
 Every function takes optional leading batch dimensions. Divisions by a
 constant divide by a tensor on the same device: PyTorch's CUDA division by
@@ -20,6 +24,8 @@ and move a truncated sample point. Such scalars are filled on the device
 and index tables come from ``runtime.device_constant``, so that nothing
 here copies from host memory and waits for the card.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -30,7 +36,8 @@ from terran_tpu_torch.runtime import device_constant
 # Limb topology tables for the CMU 2017 body model — public OpenPose
 # constants (reference copies at openpose/wrapper.py:12-23). ``MAP_IDX``
 # indexes PAF channel pairs (x, y) after the -19 offset; ``LIMBSEQ`` is
-# 1-based keypoint ids per limb.
+# 1-based keypoint ids per limb. They keep the JAX package's names; the
+# port reads them through ``COCO_18`` below.
 MAP_IDX = np.array([
     [31, 32], [39, 40], [33, 34], [35, 36], [41, 42], [43, 44],
     [19, 20], [21, 22], [23, 24], [25, 26], [27, 28], [29, 30],
@@ -44,11 +51,61 @@ LIMBSEQ = np.array([
     [1, 15], [15, 17], [1, 16], [16, 18], [3, 17], [6, 18],
 ]) - 1
 
-# limb_scores reads each (x, y) PAF pair at channel c and c + 1.
-assert (MAP_IDX[:, 1] == MAP_IDX[:, 0] + 1).all()
-
 NUM_PARTS = 18
 NUM_LIMBS = 19
+
+
+class Skeleton(NamedTuple):
+    """A pose family's parts and limbs.
+
+    ``parts``: the part heatmaps the peaks are found on (the network's
+    first channels). ``limbseq``: (L, 2) 0-based (source, destination)
+    part of each limb, in the order limbs are scored and assembled.
+    ``map_idx``: (L, 2) the (x, y) channels of each limb in the PAF
+    field. ``starts``: (L,) whether a limb matching no human may start
+    one; the redundant limbs (an ear to a shoulder) may only join
+    humans."""
+
+    parts: int
+    limbseq: np.ndarray
+    map_idx: np.ndarray
+    starts: np.ndarray
+
+    @property
+    def limbs(self):
+        return len(self.limbseq)
+
+
+# The CMU 2017 COCO body model: 18 parts, 19 limbs, the last two redundant.
+COCO_18 = Skeleton(NUM_PARTS, LIMBSEQ, MAP_IDX,
+                   np.arange(NUM_LIMBS) < NUM_LIMBS - 2)
+
+# OpenPose's BODY_25 (poseParameters.cpp): POSE_BODY_25_PAIRS and
+# POSE_BODY_25_MAP_INDEX (counted from the first PAF channel, 26 of the
+# network's joined output). Its redundant limbs are the ear-shoulder
+# pairs 18 and 19, which OpenPose's connector also sets apart.
+BODY_25 = Skeleton(
+    25,
+    np.array([
+        [1, 8], [1, 2], [1, 5], [2, 3], [3, 4], [5, 6], [6, 7], [8, 9],
+        [9, 10], [10, 11], [8, 12], [12, 13], [13, 14], [1, 0], [0, 15],
+        [15, 17], [0, 16], [16, 18], [2, 17], [5, 18], [14, 19],
+        [19, 20], [14, 21], [11, 22], [22, 23], [11, 24],
+    ]),
+    np.array([
+        [0, 1], [14, 15], [22, 23], [16, 17], [18, 19], [24, 25],
+        [26, 27], [6, 7], [2, 3], [4, 5], [8, 9], [10, 11], [12, 13],
+        [30, 31], [32, 33], [36, 37], [34, 35], [38, 39], [20, 21],
+        [28, 29], [40, 41], [42, 43], [44, 45], [46, 47], [48, 49],
+        [50, 51],
+    ]),
+    ~np.isin(np.arange(26), (18, 19)),
+)
+
+# limb_scores reads each (x, y) PAF pair at channel c and c + 1.
+assert all((s.map_idx[:, 1] == s.map_idx[:, 0] + 1).all()
+           for s in (COCO_18, BODY_25))
+
 NUM_MIDPOINTS = 10
 
 
@@ -116,8 +173,8 @@ def find_peaks(heatmaps, threshold, max_peaks):
     return coords, torch.where(valid, scores, 0.0), valid, overflow
 
 
-def _limb_geometry(coords, valid, ups_h, ups_w):
-    """Shared pair geometry for limb scoring.
+def _limb_geometry(coords, valid, ups_h, ups_w, skeleton):
+    """Shared pair geometry for limb scoring over ``skeleton``'s limbs.
 
     coords: (..., P, K, 2) int peak positions in the UPSAMPLED grid; valid:
     (..., P, K). Returns (seg_y, seg_x (..., L, K, K, M) int64 clipped to
@@ -125,7 +182,7 @@ def _limb_geometry(coords, valid, ups_h, ups_w):
     pair_valid).
     """
     src_parts, dst_parts = (
-        device_constant(tuple(LIMBSEQ[:, i].tolist()), torch.int64,
+        device_constant(tuple(skeleton.limbseq[:, i].tolist()), torch.int64,
                         coords.device)
         for i in (0, 1)
     )
@@ -181,10 +238,12 @@ def _score_pairs(px, py, dirs, safe_norms, pair_valid, ups_h,
     return reg, accept
 
 
-def limb_scores(pafs, coords, valid, thresh_midpoint):
-    """Line-integral limb scoring for all limbs and pairs at once.
+def limb_scores(pafs, coords, valid, thresh_midpoint, skeleton=COCO_18):
+    """Line-integral limb scoring for all of ``skeleton``'s limbs and pairs
+    at once.
 
-    pafs: (..., H, W, 38) — the UPSAMPLED field; coords: (..., P, K, 2)
+    pafs: (..., H, W, C) — the UPSAMPLED field, C PAF channels (38 for
+    COCO-18, 52 for BODY_25); coords: (..., P, K, 2)
     int (y, x); valid: (..., P, K). Returns (reg_scores (..., L, K, K),
     accept (..., L, K, K) bool), where ``accept`` combines the reference's
     two criteria and slot validity. Samples are read by gathering from the
@@ -193,12 +252,12 @@ def limb_scores(pafs, coords, valid, thresh_midpoint):
     """
     h, w, c = pafs.shape[-3:]
     seg_y, seg_x, dirs, norms, safe_norms, pair_valid = _limb_geometry(
-        coords, valid, h, w
+        coords, valid, h, w, skeleton
     )
 
-    channel = device_constant(tuple(MAP_IDX[:, 0].tolist()), torch.int64,
-                              pafs.device)
-    channel = channel.view(NUM_LIMBS, 1, 1, 1)
+    channel = device_constant(tuple(skeleton.map_idx[:, 0].tolist()),
+                              torch.int64, pafs.device)
+    channel = channel.view(skeleton.limbs, 1, 1, 1)
     index = (seg_y * w + seg_x) * c + channel  # (..., L, K, K, M)
     flat = pafs.reshape(-1, h * w * c)
     index = index.reshape(flat.shape[0], -1)
@@ -210,7 +269,8 @@ def limb_scores(pafs, coords, valid, thresh_midpoint):
     )
 
 
-def limb_scores_sampled(pafs_small, factor, coords, valid, thresh_midpoint):
+def limb_scores_sampled(pafs_small, factor, coords, valid, thresh_midpoint,
+                        skeleton=COCO_18):
     """:func:`limb_scores` on the x``factor`` bicubic upsample of
     ``pafs_small`` without building it: each segment point samples the
     field through ``ops.upsample.sample_bicubic`` (the port of
@@ -219,18 +279,18 @@ def limb_scores_sampled(pafs_small, factor, coords, valid, thresh_midpoint):
     pipeline and ``make_pose_decode`` keep that materialised form
     (:func:`limb_table`).
 
-    pafs_small: (..., h, w, 38), the network-resolution field; coords,
+    pafs_small: (..., h, w, C), the network-resolution field; coords,
     valid as :func:`limb_scores`, in the upsampled grid.
     """
     h, w = pafs_small.shape[-3:-1]
     ups_h, ups_w = h * factor, w * factor
     seg_y, seg_x, dirs, norms, safe_norms, pair_valid = _limb_geometry(
-        coords, valid, ups_h, ups_w
+        coords, valid, ups_h, ups_w, skeleton
     )
-    planes = pafs_small.movedim(-1, -3)  # (..., 38, h, w)
+    planes = pafs_small.movedim(-1, -3)  # (..., C, h, w)
 
     def sample(column):
-        channel = device_constant(tuple(MAP_IDX[:, column].tolist()),
+        channel = device_constant(tuple(skeleton.map_idx[:, column].tolist()),
                                   torch.int64, pafs_small.device)
         maps = planes.index_select(-3, channel).reshape(-1, h, w)
         points = seg_y.shape[-3:]
@@ -245,26 +305,31 @@ def limb_scores_sampled(pafs_small, factor, coords, valid, thresh_midpoint):
     )
 
 
-def limb_table(pafs_small, coords, valid, thresh_midpoint, factor=8):
+def limb_table(pafs_small, coords, valid, thresh_midpoint, factor=8,
+               skeleton=COCO_18):
     """The packed limb table (..., L, K, K, 2) = (reg_score, accept as
     float32) of :func:`limb_scores` on the x``factor`` bicubic upsample of
-    ``pafs_small`` (..., h, w, 38), the network-resolution field; coords,
-    valid as :func:`limb_scores`, in the upsampled grid."""
+    ``pafs_small`` (..., h, w, C), the network-resolution field; coords,
+    valid as :func:`limb_scores`, in the upsampled grid; L is
+    ``skeleton``'s limbs."""
     reg, accept = limb_scores(upsample_bicubic(pafs_small, factor), coords,
-                              valid, thresh_midpoint)
+                              valid, thresh_midpoint, skeleton)
     return torch.stack([reg, accept.to(torch.float32)], dim=-1)
 
 
-def normalize_images(images):
-    """uint8 (N, H, W, 3) -> float32 ``x / 255 - 0.5`` (wrapper.py:116-122)."""
-    return _divide(images.to(torch.float32), 255.0) - 0.5
+def normalize_images(images, scale=255.0):
+    """uint8 (N, H, W, 3) -> float32 ``x / scale - 0.5``: 255 for the COCO
+    model (wrapper.py:116-122), 256 for BODY_25 (OpenPose's
+    ``uCharCvMatToFloatPtr``)."""
+    return _divide(images.to(torch.float32), scale) - 0.5
 
 
 def forward_and_find_peaks(model, images, keypoint_threshold, max_peaks,
-                           use_fused, factor=8, mesh=None):
-    """Normalise + CPM forward + fixed-K peak finding. ``images`` are
-    uint8 (N, H, W, 3) at the network input resolution, on the model's
-    device. Returns (paf x1 float32 NHWC, coords, scores, valid,
+                           use_fused, factor=8, mesh=None, skeleton=COCO_18):
+    """Normalise + pose forward + fixed-K peak finding on ``skeleton``'s
+    parts. ``images`` are uint8 (N, H, W, 3) at the network input
+    resolution, on the model's device; the model's ``input_scale``
+    normalises them. Returns (paf x1 float32 NHWC, coords, scores, valid,
     overflow).
 
     ``mesh`` is the JAX function's keyword, whose Pallas kernel needs
@@ -274,10 +339,10 @@ def forward_and_find_peaks(model, images, keypoint_threshold, max_peaks,
     if mesh is not None and images.device != mesh.device:
         raise ValueError(f"images on {images.device}, not on the mesh's "
                          f"{mesh.device}")
-    x = normalize_images(images)
+    x = normalize_images(images, model.input_scale)
     paf, heat = model(x.to(model.compute_dtype))
     paf = paf.to(torch.float32)
-    heat = heat.to(torch.float32)[..., :NUM_PARTS]
+    heat = heat.to(torch.float32)[..., :skeleton.parts]
 
     if use_fused:
         from terran_tpu_torch.ops.fused_peaks import find_peaks_fused

@@ -36,7 +36,11 @@ a second stream, from pinned staging. ``process_stream`` dispatches batch
 
 ``recognizer='vit_l'`` embeds with the ViT-L of insightface's
 ``arcface_torch`` (``models/vit.py``) in FaceResNet100's place, through the
-same programs. ``embed_precision='int8'`` and ``pose_precision='int8'``
+same programs. ``pose='body25'`` runs OpenPose's BODY_25
+(``models/body25.py``: 25 parts, 26 limbs) in the COCO model's place,
+through the same pose programs, peak kernels, limb table and assembly,
+each taking the family's ``ops.pose_decode.Skeleton``.
+``embed_precision='int8'`` and ``pose_precision='int8'``
 (opt-in, off by default) run FaceResNet100 and OpenPose with int8 convs
 (``models/quant.py``), quantised from the float32 weights before the
 other leaves are cast to the compute dtype.
@@ -78,7 +82,9 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from terran_tpu_torch.models import FAMILIES, RECOGNIZERS, load_model
+from terran_tpu_torch.models import (
+    FAMILIES, POSE_FAMILIES, RECOGNIZERS, load_model,
+)
 from terran_tpu_torch.models.arcface import (
     EMBEDDING_DIM, normalize_embeddings,
 )
@@ -88,8 +94,7 @@ from terran_tpu_torch.models.retinaface import (
 )
 from terran_tpu_torch.ops.fused_peaks import fused_peaks_enabled
 from terran_tpu_torch.ops.pose_decode import (
-    NUM_LIMBS, NUM_PARTS, forward_and_find_peaks, limb_table, pack_peaks,
-    unpack_pose_outputs,
+    forward_and_find_peaks, limb_table, pack_peaks, unpack_pose_outputs,
 )
 from terran_tpu_torch.ops.resize import (
     resize_bilinear_u8, resize_bilinear_u8_cv2, resize_bilinear_u8_host,
@@ -265,7 +270,12 @@ class PerceptionPipeline:
     (FaceResNet100, the default) or ``'vit_l'`` (the ViT of insightface's
     ``arcface_torch``, :class:`~terran_tpu_torch.models.vit.ViTRecognizer`,
     whose ``rec_params`` come from ``utils.convert.convert_vit_l``; it has
-    no int8 trunk and no checkpoint in the store).
+    no int8 trunk and no checkpoint in the store). ``pose``: the pose
+    family, ``'openpose'`` (the COCO body model, 18 parts, the default) or
+    ``'body25'`` (OpenPose's BODY_25,
+    :class:`~terran_tpu_torch.models.body25.Body25Model`, whose
+    ``pose_params`` come from ``utils.convert.convert_body25``; it has no
+    int8 trunk and no checkpoint in the store).
     """
 
     def __init__(self, det_params=None, rec_params=None, pose_params=None,
@@ -276,7 +286,8 @@ class PerceptionPipeline:
                  embed_dispatch=None, limb_dispatch=None,
                  max_escalations=None, transfer_plan=None,
                  embed_precision=None, pose_precision=None,
-                 host_resize=None, device=None, recognizer="arcface"):
+                 host_resize=None, device=None, recognizer="arcface",
+                 pose="openpose"):
         from terran_tpu_torch.checkpoint import load_checkpoint_params
         from terran_tpu_torch.config import get_config
 
@@ -299,6 +310,14 @@ class PerceptionPipeline:
             raise ValueError(f"embed_precision='int8': the {recognizer!r} "
                              "recognizer has no int8 trunk")
         self.recognizer = recognizer
+        if pose not in POSE_FAMILIES:
+            raise ValueError(f"pose must be one of {POSE_FAMILIES}, got "
+                             f"{pose!r}")
+        if self.pose_precision == "int8" and FAMILIES[pose].int8 is None:
+            raise ValueError(f"pose_precision='int8': the {pose!r} pose "
+                             "family has no int8 trunk")
+        self.pose = pose
+        self.skeleton = FAMILIES[pose].skeleton
         self.with_pose = with_pose
         self.with_embeddings = with_embeddings
         self.embed_dispatch = _resolve_dispatch(
@@ -420,8 +439,10 @@ class PerceptionPipeline:
             rec_params = load_checkpoint_params(
                 FAMILIES[recognizer].checkpoint)
         if pose_params is None and with_pose:
-            pose_params = load_checkpoint_params(
-                FAMILIES["openpose"].checkpoint)
+            if FAMILIES[pose].checkpoint is None:
+                raise ValueError(f"pose={pose!r} needs pose_params: the "
+                                 "store has no checkpoint")
+            pose_params = load_checkpoint_params(FAMILIES[pose].checkpoint)
 
         cuda = self.device.type == "cuda"
         # All device work is ordered on one compute stream; uploads run
@@ -439,7 +460,7 @@ class PerceptionPipeline:
         )
         self.pose_model = (
             None if pose_params is None else
-            load_model("openpose", pose_params, dtype, self.device,
+            load_model(pose, pose_params, dtype, self.device,
                        self.pose_precision)
         )
         if mesh is not None:
@@ -601,7 +622,8 @@ class PerceptionPipeline:
                 frames_full, pose_h, pose_w, max_peaks
             )
             return peaks, limb_table(paf, coords, valid,
-                                     self.thresh_midpoint)
+                                     self.thresh_midpoint,
+                                     skeleton=self.skeleton)
 
         return self._cached("pose", (full_h, full_w, max_peaks),
                             lambda: decode)
@@ -618,6 +640,7 @@ class PerceptionPipeline:
         paf, coords, scores, valid, overflow = forward_and_find_peaks(
             self.pose_model, frames_pose, self.keypoint_threshold,
             max_peaks, self.use_fused_peaks, mesh=self.mesh,
+            skeleton=self.skeleton,
         )
         return paf, pack_peaks(coords, scores, valid, overflow), coords, \
             valid
@@ -651,7 +674,8 @@ class PerceptionPipeline:
         def limbs_fn(paf, cv_packed):
             coords = cv_packed[..., :2].to(torch.int32)
             valid = cv_packed[..., 2] > 0.5
-            return limb_table(paf, coords, valid, self.thresh_midpoint)
+            return limb_table(paf, coords, valid, self.thresh_midpoint,
+                              skeleton=self.skeleton)
 
         return self._cached("limbs", (kb, self.limb_backend)
                             + tuple(paf_shape), lambda: limbs_fn)
@@ -714,11 +738,12 @@ class PerceptionPipeline:
         carrying ``span``."""
         return _Fetch(self._gathered(tensor), span)
 
-    def _run_embed(self, fn, *args):
-        """Call the embed program ``fn`` through :meth:`_program`. Returns
-        its packed (B, k, dim + 1) output and, with a timer attached, the
-        :class:`_DeviceSpan` of the call (None without one), which
-        :meth:`_record_embed` reads where the output is fetched."""
+    def _run_timed(self, fn, *args):
+        """Call the device program ``fn`` (an embed or a pose program)
+        through :meth:`_program`. Returns its output and, with a timer
+        attached, the :class:`_DeviceSpan` of the call (None without one),
+        which :meth:`_record_embed` or :meth:`_record_pose` reads where
+        the output is fetched."""
         if self.timer is None:
             return self._program(fn, *args), None
         span = _DeviceSpan(self.device)
@@ -735,6 +760,14 @@ class PerceptionPipeline:
             return
         faces = int((fetch.numpy()[..., -1] > 0.5).sum())
         self.timer.record("embed_device", fetch.span.seconds(), faces)
+
+    def _record_pose(self, fetch, n):
+        """With a timer attached, the record of the pose program whose
+        output ``fetch`` has reached the host: ``pose_device``, its device
+        seconds with items the batch's ``n`` frames."""
+        if self.timer is None or fetch.span is None:
+            return
+        self.timer.record("pose_device", fetch.span.seconds(), n)
 
     # ------------------------------------------------------------------
     # Host orchestration
@@ -831,7 +864,8 @@ class PerceptionPipeline:
                     if kb <= self.max_peaks:
                         run(self._limb_fn(kb, paf.shape), paf,
                             self._put_batch(np.zeros(
-                                (batch, NUM_PARTS, kb, 3), np.float32)))
+                                (batch, self.skeleton.parts, kb, 3),
+                                np.float32)))
             else:
                 run(self._pose_fn(height, width), frames)
         if graphs_eligible(self.device, self.mesh, self.transfer_plan,
@@ -980,7 +1014,7 @@ class PerceptionPipeline:
         out = dict(self._program(step, frames_dev))
         span = None
         if "crops" in out:
-            out["emb_packed"], span = self._run_embed(
+            out["emb_packed"], span = self._run_timed(
                 self._embed, out.pop("crops"), out.pop("emb_mask_dev"))
         return {key: self._fetch(value, span if key == "emb_packed" else None)
                 for key, value in out.items()}
@@ -1071,20 +1105,20 @@ class PerceptionPipeline:
             )
             if self.limb_dispatch == "adaptive":
                 def repose(max_peaks):
-                    peaks, paf = self._program(self._pose_detect_fn(
-                        full_h, full_w, max_peaks, pre_resized=hostprep,
-                    ), pose_in)
-                    return self._fetch(peaks), paf
+                    (peaks, paf), span = self._run_timed(
+                        self._pose_detect_fn(full_h, full_w, max_peaks,
+                                             pre_resized=hostprep),
+                        pose_in)
+                    return self._fetch(peaks, span), paf
 
                 with stage("pose_dispatch", items=n):
                     peaks_dev, paf_dev = repose(self.max_peaks)
                 pose_out = ("adaptive", peaks_dev, paf_dev, repose)
             else:
                 with stage("pose_dispatch", items=n):
-                    pose_out = tuple(
-                        self._fetch(v) for v in self._program(
-                            self._pose_fn(full_h, full_w), frames_dev)
-                    )
+                    outs, span = self._run_timed(
+                        self._pose_fn(full_h, full_w), frames_dev)
+                    pose_out = tuple(self._fetch(v, span) for v in outs)
 
         out["_batch_id"] = bid
         return out, pose_out, n, pose_scale
@@ -1164,6 +1198,7 @@ class PerceptionPipeline:
             peaks_dev, paf_dev, repose = pose_out[1:]
             with stage("pose_fetch", items=n, nbytes=peaks_dev.nbytes):
                 peaks_np = peaks_dev.numpy()
+            self._record_pose(peaks_dev, n)
             # Escalation: a saturated part heatmap dropped its weakest
             # peaks; re-run forward+peaks at doubled max_peaks.
             mp_used = self.max_peaks
@@ -1176,6 +1211,7 @@ class PerceptionPipeline:
                 with stage("pose_escalation", items=n):
                     peaks_dev, paf_dev = repose(mp_used)
                     peaks_np = peaks_dev.numpy()
+                self._record_pose(peaks_dev, n)
             coords = peaks_np[..., :2].astype(np.int32)
             scores = peaks_np[..., 2].astype(np.float32)
             valid = peaks_np[..., 3] > 0.5
@@ -1216,8 +1252,9 @@ class PerceptionPipeline:
             with stage("limb_fetch", items=n,
                        nbytes=getattr(limbs_dev, "nbytes", 0)):
                 if limbs_dev is None:  # no peaks anywhere
-                    reg = np.zeros((n, NUM_LIMBS, kb, kb), np.float32)
-                    accept = np.zeros((n, NUM_LIMBS, kb, kb), bool)
+                    shape = (n, self.skeleton.limbs, kb, kb)
+                    reg = np.zeros(shape, np.float32)
+                    accept = np.zeros(shape, bool)
                 else:
                     limbs = limbs_dev.numpy()[:n]
                     reg = limbs[..., 0]
@@ -1229,6 +1266,7 @@ class PerceptionPipeline:
                 (coords, scores, valid, reg, accept,
                  pose_overflow) = unpack_pose_outputs(
                     *(v.numpy() for v in pose_out))
+            self._record_pose(pose_out[0], n)
             mp_used = self.max_peaks
             attempts = 0
             while (pose_overflow[:n].any() and frames_dev is not None
@@ -1239,10 +1277,12 @@ class PerceptionPipeline:
                 with stage("pose_escalation", items=n):
                     decode = self._pose_fn(frames_dev.shape[1],
                                            frames_dev.shape[2], mp_used)
+                    outs, span = self._run_timed(decode, frames_dev)
+                    pose_out = tuple(self._fetch(v, span) for v in outs)
                     (coords, scores, valid, reg, accept,
                      pose_overflow) = unpack_pose_outputs(
-                        *(self._fetch(v).numpy()
-                          for v in self._program(decode, frames_dev)))
+                        *(v.numpy() for v in pose_out))
+                self._record_pose(pose_out[0], n)
             out["pose_overflow"] = pose_overflow[:n].any(axis=-1)
 
         if state["pose"] is not None:
@@ -1252,6 +1292,7 @@ class PerceptionPipeline:
                     peaks_by_id, humans = assemble_humans(
                         coords[i], scores[i], valid[i], reg[i], accept[i],
                         human_threshold=self.human_threshold,
+                        skeleton=self.skeleton,
                     )
                     poses.append(
                         get_keypoints(peaks_by_id, humans, pose_scale)
@@ -1341,7 +1382,7 @@ class PerceptionPipeline:
         if plan is None:
             return None
         packed, k = plan
-        return self._fetch(*self._run_embed(
+        return self._fetch(*self._run_timed(
             self._warp_embed_fn(k, frames_dev.shape), frames_dev,
             self._put_batch(self._rows(packed))))
 
@@ -1380,7 +1421,7 @@ class PerceptionPipeline:
             inputs = (self._put_batch(crops), self._put_batch(mask))
             if self.mesh is not None:
                 return inputs
-            return _Fetch(*self._run_embed(self._embed, *inputs))
+            return _Fetch(*self._run_timed(self._embed, *inputs))
 
     def _collect_adaptive_embed(self, plan, n):
         """Fetch the adaptive embed result and place it in the
@@ -1390,7 +1431,7 @@ class PerceptionPipeline:
         if isinstance(plan, Future):
             plan = plan.result()
         if isinstance(plan, tuple):  # a mesh's uploaded (crops, mask)
-            plan = self._fetch(*self._run_embed(self._embed, *plan))
+            plan = self._fetch(*self._run_timed(self._embed, *plan))
         if plan is None:
             return (
                 np.zeros((n, self.max_faces, EMBEDDING_DIM), np.float32),

@@ -7,12 +7,15 @@ reference decode — greedy bipartite matching per limb
 on-device decode (``terran_tpu_torch.ops.pose_decode``). These stages are
 O(people^2) on a handful of rows, so they run on the host: in C++
 (``terran_tpu_torch.native``) where the library builds, else in the
-Python version here, which gives the same humans.
+Python version here, which gives the same humans. Both take a pose
+family's :class:`~terran_tpu_torch.ops.pose_decode.Skeleton` (COCO-18 by
+default, or BODY_25): its parts, its limbs in order and which limbs may
+start a human; the algorithm and its thresholds are the same for both.
 """
 
 import numpy as np
 
-from terran_tpu_torch.ops.pose_decode import LIMBSEQ, NUM_LIMBS, NUM_PARTS
+from terran_tpu_torch.ops.pose_decode import COCO_18
 
 
 def greedy_connections(reg_scores, accept, count_src, count_dst):
@@ -44,7 +47,7 @@ def greedy_connections(reg_scores, accept, count_src, count_dst):
 
 
 def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
-                    human_threshold=0.4, use_native=None):
+                    human_threshold=0.4, use_native=None, skeleton=COCO_18):
     """Build humans from per-limb connections for one image.
 
     Parameters are the per-image device outputs: peak_coords (P, K, 2),
@@ -52,9 +55,9 @@ def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
     accept (L, K, K).
 
     Returns (peaks_by_id (N_peaks, 3) rows of (y, x, score), humans
-    (N_humans, 20)) following the reference layout: first 18 entries are
-    global peak ids (or -1), then score sum, then keypoint count
-    (wrapper.py:368-380).
+    (N_humans, P + 2)) following the reference layout: first P entries
+    (``skeleton.parts``, 18 for COCO) are global peak ids (or -1), then
+    score sum, then keypoint count (wrapper.py:368-380).
 
     Runs the C++ version (``terran_tpu_torch.native``) when it is
     available; ``use_native=False`` forces this Python version.
@@ -67,7 +70,7 @@ def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
             peak_coords[p, : counts[p]].astype(np.float64),
             peak_scores[p, : counts[p]].astype(np.float64),
         ])
-        for p in range(NUM_PARTS)
+        for p in range(skeleton.parts)
     ]
     peaks_by_id = (
         np.concatenate(rows, axis=0) if any(len(r) for r in rows)
@@ -79,15 +82,17 @@ def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
 
         if native.native_available():
             humans = native.assemble_humans_native(
-                peak_scores, counts, offsets, reg_scores, accept, LIMBSEQ,
+                peak_scores, counts, offsets, reg_scores, accept,
+                skeleton.limbseq, skeleton.starts,
                 human_threshold=human_threshold,
             )
             return peaks_by_id, humans
 
-    humans = np.ones((0, 20)) * -1
+    row = skeleton.parts + 2
+    humans = np.ones((0, row)) * -1
 
-    for limb_id in range(NUM_LIMBS):
-        kpid_src, kpid_dst = LIMBSEQ[limb_id]
+    for limb_id in range(skeleton.limbs):
+        kpid_src, kpid_dst = skeleton.limbseq[limb_id]
         if counts[kpid_src] == 0 or counts[kpid_dst] == 0:
             continue
 
@@ -129,8 +134,8 @@ def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
                     human_1[kpid_dst] = peak_dst
                     human_1[-1] += 1
                     human_1[-2] += peaks_by_id[peak_dst, 2] + score
-            elif not matched_with and limb_id < 17:
-                human = np.ones(20) * -1
+            elif not matched_with and skeleton.starts[limb_id]:
+                human = np.ones(row) * -1
                 human[kpid_src] = peak_src
                 human[kpid_dst] = peak_dst
                 human[-1] = 2
@@ -149,12 +154,14 @@ def assemble_humans(peak_coords, peak_scores, peak_valid, reg_scores, accept,
 
 def get_keypoints(peaks_by_id, humans, scale=1.0):
     """Final keypoint dicts, rescaled to the original image
-    (wrapper.py:37-90): per human a (18, 3) int32 array of (x, y, present)
-    plus the average keypoint score."""
+    (wrapper.py:37-90): per human a (P, 3) int32 array of (x, y, present),
+    P the humans' parts (18 for COCO, 25 for BODY_25), plus the average
+    keypoint score."""
+    parts = humans.shape[1] - 2
     detections = []
     for human in humans:
-        keypoints = np.zeros((18, 3), dtype=np.int32)
-        for j in range(18):
+        keypoints = np.zeros((parts, 3), dtype=np.int32)
+        for j in range(parts):
             peak_id = int(human[j])
             if peak_id != -1:
                 y, x = peaks_by_id[peak_id][:2]

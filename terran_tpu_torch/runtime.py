@@ -134,7 +134,7 @@ def cast_params_for_compute(state_dict, compute_dtype, keep_f32=()):
 # position table, LayerNorms (norm1, norm2, norm) and head BatchNorms
 # (bn1, bn2).
 PARAMS_KEEP_F32 = {"arcface": ("embed",), "retinaface": (), "openpose": (),
-                   "vit_l": ("pos_embed", "norm", "bn")}
+                   "vit_l": ("pos_embed", "norm", "bn"), "body25": ()}
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Two sources:
 
 - the reference's torch ``.pth`` state dicts (``convert_retinaface``,
-  ``convert_arcface``, ``convert_openpose``, and ``convert_vit_l`` for
-  insightface ``arcface_torch``'s ViT), whose OIHW conv weights this
+  ``convert_arcface``, ``convert_openpose``, ``convert_vit_l`` for
+  insightface ``arcface_torch``'s ViT, and ``convert_body25`` for
+  OpenPose's BODY_25 in its prototxt's layer names), whose OIHW conv
+  weights this
   package keeps, with the folds of ``terran_tpu/utils/convert.py``:
   inference BatchNorm becomes a per-channel (scale, bias) affine, the
   RGB->BGR input flip goes into the first conv's input channels, and
@@ -111,6 +113,15 @@ class Mapper:
 
     def prelu(self, prefix):
         return _tensor(self.take(f"{prefix}.weight"))
+
+    def tensor(self, key):
+        """The value at ``key`` as a tensor where it lies, floats as
+        float32: no copy to the host, so weights on a card stay there and
+        a ``meta`` state dict converts."""
+        value = self.take(key)
+        value = (value.detach() if isinstance(value, torch.Tensor)
+                 else torch.as_tensor(np.asarray(value)))
+        return value.to(torch.float32) if value.is_floating_point() else value
 
     def assert_consumed(self):
         remaining = [
@@ -299,13 +310,7 @@ def convert_vit_l(state_dict):
     dense layer's, the training-only ``mask_token`` dropped. No arithmetic,
     so weights on a card stay there and a ``meta`` state dict converts."""
     m = Mapper(state_dict)
-
-    def take(key):
-        value = m.take(key)
-        value = (value.detach() if isinstance(value, torch.Tensor)
-                 else torch.as_tensor(np.asarray(value)))
-        return value.to(torch.float32) if value.is_floating_point() else value
-
+    take = m.tensor
     w = take("patch_embed.proj.weight")
     out = {"patch_embed.weight": w.reshape(w.shape[0], -1),
            "patch_embed.bias": take("patch_embed.proj.bias"),
@@ -379,6 +384,35 @@ def params_from_jax(params):
                 out[path] = _tensor(value)
 
     walk(params, "")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# OpenPose's BODY_25 (models/pose/body_25/pose_deploy.prototxt)
+# ---------------------------------------------------------------------------
+
+
+def convert_body25(state_dict):
+    """A BODY_25 state dict in the prototxt's layer names (each Caffe
+    layer's blobs as ``<layer>.weight`` and ``<layer>.bias``, a PReLU's
+    slopes as ``<prelu layer>.weight``) -> the
+    :class:`~terran_tpu_torch.models.body25.Body25Model` state dict, at
+    any widths: the same keys, float32, with ``conv1_1``'s input channels
+    flipped so that the model takes RGB where the published network takes
+    BGR. No other arithmetic, so weights on a card stay there and a
+    ``meta`` state dict converts."""
+    from terran_tpu_torch.models.body25 import layers
+
+    m = Mapper(state_dict)
+    take = m.tensor
+    out = {}
+    for conv, act in layers():
+        out[f"{conv}.weight"] = take(f"{conv}.weight")
+        out[f"{conv}.bias"] = take(f"{conv}.bias")
+        if act not in (None, "relu"):
+            out[f"{act}.weight"] = take(f"{act}.weight")
+    out["conv1_1.weight"] = out["conv1_1.weight"].flip(1)
+    m.assert_consumed()
     return out
 
 
@@ -476,6 +510,7 @@ CONVERTERS = {
     "arcface": convert_arcface,
     "openpose": convert_openpose,
     "vit_l": convert_vit_l,
+    "body25": convert_body25,
 }
 
 

@@ -2,7 +2,8 @@
 model, over every family of ``models.FAMILIES`` and each precision it has,
 on the CPU, with the weights of ``torch_oracle``'s random reference
 checkpoints carried through the port's converters (the ViT at
-``test_torch_vit``'s 2 blocks of width 64).
+``test_torch_vit``'s 2 blocks of width 64, BODY_25 at
+``torch_body25_weights``' narrow widths).
 
 The loaded state dict is held bit for bit to what the load is made of:
 ``cast_params_for_compute`` with the family's ``PARAMS_KEEP_F32`` names
@@ -22,6 +23,7 @@ from terran_tpu_torch.pipeline import PerceptionPipeline
 from terran_tpu_torch.pose.openpose import OpenPoseEstimator
 from terran_tpu_torch.runtime import PARAMS_KEEP_F32, cast_params_for_compute
 from terran_tpu_torch.utils.convert import CONVERTERS, params_to_jax
+from torch_body25_weights import body25_state_dict
 from torch_oracle import (
     random_arcface_state_dict, random_openpose_state_dict,
     random_retinaface_state_dict, random_vit_state_dict,
@@ -31,7 +33,8 @@ from torch_port_fixtures import single_torch_thread  # noqa: F401
 REFERENCE = {"retinaface": random_retinaface_state_dict,
              "arcface": random_arcface_state_dict,
              "openpose": random_openpose_state_dict,
-             "vit_l": random_vit_state_dict}
+             "vit_l": random_vit_state_dict,
+             "body25": body25_state_dict}
 CASES = [(family, precision) for family, entry in FAMILIES.items()
          for precision in ("native", "int8")
          if precision == "native" or entry.int8 is not None]
@@ -109,10 +112,10 @@ def test_a_family_without_an_int8_twin_raises(params, family):
 
 
 @pytest.mark.parametrize("family,precision", [
-    case for case in CASES if case[0] != "vit_l"])
+    case for case in CASES if case[0] not in ("vit_l", "body25")])
 def test_task_api_and_pipeline_hold_one_model(params, family, precision):
     """Given the same weights, a task API and the pipeline hold equal
-    state dicts (the ViT has no task API)."""
+    state dicts (the ViT and BODY_25 have no task API)."""
     kwargs = {"compute_dtype": torch.bfloat16, "device": "cpu"}
     if family == "retinaface":
         task = RetinaFaceDetector(params=params[family], **kwargs).model

@@ -11,7 +11,7 @@ import pytest
 
 from terran_tpu.pose import assembly as jax_assembly
 from terran_tpu_torch import native
-from terran_tpu_torch.ops.pose_decode import LIMBSEQ, NUM_LIMBS, NUM_PARTS
+from terran_tpu_torch.ops.pose_decode import COCO_18
 from terran_tpu_torch.pose import assembly
 from test_native import random_decode_outputs
 
@@ -79,11 +79,12 @@ def test_native_assembly_matches_python_and_jax(k, peak_prob, accept_prob):
 
 @pytest.mark.parametrize("use_native", [True, False])
 def test_no_peaks_no_humans(use_native):
-    outputs = (np.zeros((NUM_PARTS, 4, 2), np.int32),
-               np.zeros((NUM_PARTS, 4), np.float32),
-               np.zeros((NUM_PARTS, 4), bool),
-               np.zeros((NUM_LIMBS, 4, 4), np.float32),
-               np.zeros((NUM_LIMBS, 4, 4), bool))
+    parts, limbs = COCO_18.parts, COCO_18.limbs
+    outputs = (np.zeros((parts, 4, 2), np.int32),
+               np.zeros((parts, 4), np.float32),
+               np.zeros((parts, 4), bool),
+               np.zeros((limbs, 4, 4), np.float32),
+               np.zeros((limbs, 4, 4), bool))
     peaks, humans = assembly.assemble_humans(*outputs, use_native=use_native)
     assert peaks.shape == (0, 3)
     assert humans.shape == (0, 20)
@@ -106,7 +107,10 @@ def test_inconsistent_shapes_raise():
     offsets = np.concatenate([[0], np.cumsum(counts)[:-1]])
     with pytest.raises(ValueError, match="inconsistent"):
         native.assemble_humans_native(scores[:, :4], counts, offsets, reg,
-                                      accept, LIMBSEQ)
+                                      accept, COCO_18.limbseq,
+                                      COCO_18.starts)
     with pytest.raises(ValueError, match="inconsistent"):
         native.assemble_humans_native(scores, counts, offsets, reg,
-                                      accept, LIMBSEQ + NUM_PARTS)
+                                      accept,
+                                      COCO_18.limbseq + COCO_18.parts,
+                                      COCO_18.starts)

@@ -16,7 +16,7 @@ from terran_tpu.ops import pose_decode as jax_decode
 from terran_tpu.pose.assembly import assemble_humans as jax_assemble
 from terran_tpu.pose.assembly import get_keypoints as jax_get_keypoints
 from terran_tpu_torch.ops.pose_decode import (
-    NUM_PARTS, find_peaks, limb_scores, pack_peaks, unpack_pose_outputs,
+    COCO_18, find_peaks, limb_scores, pack_peaks, unpack_pose_outputs,
 )
 from terran_tpu_torch.pose.assembly import assemble_humans, get_keypoints
 from torch_port_fixtures import single_torch_thread  # noqa: F401
@@ -47,7 +47,7 @@ def both_peaks(heat, max_peaks):
 @pytest.mark.parametrize("max_peaks", [64, 4])
 def test_find_peaks_matches_jax(max_peaks, rng):
     heat, _ = smooth_fields(rng)
-    heat = heat[..., :NUM_PARTS]
+    heat = heat[..., :COCO_18.parts]
     exp, got = both_peaks(heat, max_peaks)
     for e, g in zip(exp, got):
         np.testing.assert_array_equal(e, g)
@@ -68,7 +68,7 @@ def test_limb_scores_and_keypoints_match_jax(rng):
     for trial in range(3):
         heat, pafs = smooth_fields(rng)
         exp_peaks, (coords, scores, valid, overflow) = both_peaks(
-            heat[..., :NUM_PARTS], 64
+            heat[..., :COCO_18.parts], 64
         )
         reg_e, acc_e = map(np.array, jax_decode.limb_scores(
             jnp.array(pafs), jnp.array(coords), jnp.array(valid), 0.05
@@ -95,7 +95,8 @@ def test_limb_scores_and_keypoints_match_jax(rng):
 
 def test_batched_limb_scores_equal_per_image(rng):
     fields = [smooth_fields(rng, 32, 40) for _ in range(2)]
-    heat = torch.from_numpy(np.stack([f[0] for f in fields]))[..., :NUM_PARTS]
+    heat = torch.from_numpy(
+        np.stack([f[0] for f in fields]))[..., :COCO_18.parts]
     pafs = torch.from_numpy(np.stack([f[1] for f in fields]))
     coords, scores, valid, overflow = find_peaks(heat, 0.1, 16)
     reg, accept = limb_scores(pafs, coords, valid, 0.05)
@@ -109,7 +110,7 @@ def test_batched_limb_scores_equal_per_image(rng):
 def test_pack_unpack_round_trip(rng):
     heat, _ = smooth_fields(rng, 32, 40)
     coords, scores, valid, overflow = find_peaks(
-        torch.from_numpy(heat[..., :NUM_PARTS]), 0.1, 4
+        torch.from_numpy(heat[..., :COCO_18.parts]), 0.1, 4
     )
     peaks = pack_peaks(coords, scores, valid, overflow)
     limbs = torch.zeros((19, 4, 4, 2))

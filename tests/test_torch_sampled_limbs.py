@@ -18,7 +18,7 @@ from terran_tpu.ops.pose_decode import (
 )
 from terran_tpu.ops.upsample import sample_bicubic as jax_sample_bicubic
 from terran_tpu_torch.ops.pose_decode import (
-    NUM_PARTS, find_peaks, limb_scores, limb_scores_sampled,
+    COCO_18, find_peaks, limb_scores, limb_scores_sampled,
 )
 from terran_tpu_torch.ops.upsample import sample_bicubic, upsample_bicubic
 from torch_port_fixtures import single_torch_thread  # noqa: F401
@@ -49,7 +49,7 @@ def test_sample_bicubic_is_the_upsampled_field(shape, factor):
 
 def peaks_on(heat, max_peaks):
     coords, _, valid, _ = find_peaks(
-        upsample_bicubic(torch.from_numpy(heat[..., :NUM_PARTS]), 8), 0.1,
+        upsample_bicubic(torch.from_numpy(heat[..., :COCO_18.parts]), 8), 0.1,
         max_peaks)
     return coords, valid
 
@@ -76,8 +76,8 @@ def test_limb_scores_sampled_match_jax(seed):
     h, w, k, factor = 24, 30, 6, 8
     pafs = rng.normal(scale=0.3, size=(h, w, 38)).astype(np.float32)
     coords = rng.integers(0, min(h, w) * factor - 1,
-                          size=(NUM_PARTS, k, 2)).astype(np.int32)
-    valid = rng.uniform(size=(NUM_PARTS, k)) < 0.7
+                          size=(COCO_18.parts, k, 2)).astype(np.int32)
+    valid = rng.uniform(size=(COCO_18.parts, k)) < 0.7
     reg, accept = limb_scores_sampled(torch.from_numpy(pafs), factor,
                                       torch.from_numpy(coords),
                                       torch.from_numpy(valid), 0.05)
