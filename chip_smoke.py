@@ -13,8 +13,10 @@ Phases (any failure raises, exits nonzero and prints no result line):
    and matplotlib import (recorded only);
 2. build the hand-written kernels with nvcc, one build per source, in
    parallel: terran_tpu_torch/csrc/fused_peaks.cu (the tile scan and the
-   plane merge) and terran_tpu_torch/csrc/nms.cu (the IoU bitmask and the
-   greedy sweep); then the native pose assembly
+   plane merge), terran_tpu_torch/csrc/nms.cu (the IoU bitmask and the
+   greedy sweep), csrc/quant_conv.cu (the int8 conv's passes) and
+   csrc/conv_epilogue.cu (the floating-point convs' epilogue); then the
+   native pose assembly
    (terran_tpu_torch/native/assembly.cpp) with g++, which must load;
 3. hold the peak kernels against their plain PyTorch version on the card, exact
    equality of coords, valid, overflow and scores, on random fields,
@@ -68,6 +70,19 @@ Phases (any failure raises, exits nonzero and prints no result line):
    bench.py's configuration and at top_k 4 with a keypoint threshold that
    puts the embed and limb programs at buckets below their maximum; the
    fused embed and limbs on one batch likewise;
+   the conv epilogue (``conv_epilogue_phase``): one eager
+   ``process_batch`` of a fresh bf16 pipeline at bench.py's configuration
+   launches ``ops/conv_epilogue.py``'s kernel once for each floating-point
+   conv and standalone affine of each model call (RetinaFace 56,
+   FaceResNet100 153, OpenPose 92, counted by forward hooks), counted by
+   mode where it launches; those launches, rebuilt on seeded tensors of
+   their shapes and layouts with NaN, +-inf and -0 among them, the kernel
+   equal to its plain version bit for bit out of place and in place
+   (raises otherwise), then replayed in one CUDA graph each way and timed
+   by CUDA events (no profiler before phase 6): the kernel, its plain
+   version and the eager chain it replaced, beside its byte bound (each
+   output read and written once, each residual read once, at 3.35 TB/s),
+   and the largest call alone;
    this slice's main path, concurrent streams: 4 seeded 1080p
    ``SyntheticVideo`` noise streams of 16 frames (source batch 4) through
    ``MultiStreamPerception`` on the warm pipeline, batch 8, tracking on, 2
@@ -122,7 +137,9 @@ Phases (any failure raises, exits nonzero and prints no result line):
    ``process_stream`` over the 8 batches before ``warmup`` with the
    kernels' launch counts set to 0 just before it (each pair 2 launches a
    batch, 25-part peak tables for every frame, peaks found, poses of 25
-   keypoints); the peak kernel against its plain version on the strided
+   keypoints), and the conv epilogue launched once for each BODY_25 and
+   RetinaFace conv of each call, then one batch's epilogues checked and
+   timed as above; the peak kernel against its plain version on the strided
    [..., :25] view of a (8, 46, 81, 78) box-blurred noise field and of
    the model's own output (132 tiles a plane) at K=16, 128 and 512 (the
    last holds every peak of the noise field), timed at K=16; then ``warmup`` and 3 timed sweeps, every call a replay;
@@ -1054,8 +1071,9 @@ def body25_phase(rf_params, batches, card):
         fp.find_peaks_fused.launches = 0
         nms.suppress.launches = 0
         calls = dict(pipe.graph_calls)
-        eager = list(pipe.process_stream(batches, depth=PIPE_DEPTH))
-        torch.cuda.synchronize()
+        eager = []
+        epilogues, expected = counted_epilogues(pipe, lambda: eager.extend(
+            pipe.process_stream(batches, depth=PIPE_DEPTH)))
     finally:
         program.assemble_humans = original
     launches = {"fused_peaks": fp.find_peaks_fused.launches,
@@ -1078,6 +1096,24 @@ def body25_phase(rf_params, batches, card):
         + ", ".join(f"{k} {v / len(batches):g}" for k, v in launches.items())
         + f"; {valid / (BATCH * len(batches) * BODY_25.parts):.2f} valid "
         f"peaks a part a frame, {humans} humans")
+
+    if sum(epilogues.values()) != expected:
+        raise AssertionError(f"BODY_25 before warmup: conv epilogue "
+                             f"launches {epilogues}, expected {expected}")
+    per_call = epilogue_convs(pipe.pose_model)
+    epilogue = epilogue_timing(recorded_epilogues(
+        lambda: pipe.process_batch(batches[0])), card)
+    log(f"BODY_25 conv epilogue ({card}): {sum(epilogues.values())} "
+        f"launches over the {len(batches)} eager batches (expected "
+        f"{expected}; {per_call} a BODY_25 call), by mode {epilogues}; one "
+        f"batch's launches rebuilt with NaN, +-inf and -0: kernel equal to "
+        f"the plain version bit for bit {epilogue['exact']} (largest "
+        f"difference {epilogue['max_abs_err']}), in one graph: kernel "
+        f"{epilogue['kernel_ms']:.4f} device ms a batch, bound "
+        f"{epilogue['bound_ms']:.4f} ms ({epilogue['bound_share_pct']:.1f}% "
+        f"of it), plain {epilogue['plain_ms']:.4f} ms, the eager chain "
+        f"{epilogue['eager_chain_ms']:.4f} ms; largest call "
+        f"{epilogue['largest']}")
 
     peaks = body25_peaks_phase(pipe, batches[0], card)
 
@@ -1111,6 +1147,9 @@ def body25_phase(rf_params, batches, card):
             "valid_peaks_per_part_frame":
                 valid / (BATCH * len(batches) * BODY_25.parts),
             "humans": humans, "peaks": peaks, "fps": fps,
+            "conv_epilogue": dict(epilogue, launches=epilogues,
+                                  expected=expected,
+                                  per_body25_call=per_call),
             "fps_median": fps_median, "pose_device_ms": pose_ms,
             "warmup_programs": programs, "warmup_s": warm_s,
             "batches": PIPE_BATCHES, "graph_calls": graph_calls}, pipe
@@ -1254,6 +1293,275 @@ def graphs_phase(params, card):
         f"{fields['main']}; top_k {GRAPH_TOP_K} {fields['buckets']}; fused "
         f"embed and limbs, one batch, {fields['fused']}")
     return fields
+
+
+def epilogue_convs(model):
+    """The epilogues one forward of ``model`` launches: one for each
+    floating-point conv and each standalone affine (FaceResNet100's
+    ``pre`` and ``head_pre``)."""
+    from torch import nn
+
+    from terran_tpu_torch.models.layers import Affine
+
+    return sum(isinstance(m, (nn.Conv2d, Affine)) for m in model.modules())
+
+
+def counted_epilogues(pipe, run):
+    """(conv_epilogue launches by mode, the launches expected) of ``run()``
+    on ``pipe``: each call of each of its models, counted by a forward
+    hook, times that model's :func:`epilogue_convs`."""
+    import collections
+
+    import torch
+
+    from terran_tpu_torch.ops import conv_epilogue as ce
+
+    models = [m for m in (pipe.det_model, pipe.rec_model, pipe.pose_model)
+              if m is not None]
+    calls = collections.Counter()
+    hooks = [m.register_forward_pre_hook(
+        lambda module, args: calls.update([id(module)])) for m in models]
+    ce.conv_epilogue.launches.clear()
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return dict(ce.conv_epilogue.launches), sum(
+        calls[id(m)] * epilogue_convs(m) for m in models)
+
+
+def recorded_epilogues(run):
+    """(shape, strides, dtype, scale?, bias?, relu, alpha?, residual?) of
+    every conv_epilogue launch of ``run()``, in order."""
+    from terran_tpu_torch.ops import conv_epilogue as ce
+
+    calls = []
+    kernel = ce.conv_epilogue_kernel
+
+    def recording(x, bias, scale, relu, alpha, residual, inplace):
+        calls.append((tuple(x.shape), x.stride(), x.dtype, scale is not None,
+                      bias is not None, relu, alpha is not None,
+                      residual is not None))
+        return kernel(x, bias, scale, relu, alpha, residual, inplace)
+
+    ce.conv_epilogue_kernel = recording
+    try:
+        run()
+    finally:
+        ce.conv_epilogue_kernel = kernel
+    return calls
+
+
+def captured(fn):
+    """``fn`` captured in a CUDA graph after one eager run on the capture
+    stream."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def same_bits(got, expected):
+    """(equal, largest absolute difference) of two float tensors of one
+    dtype, shape and layout: equal where every element has the same bits,
+    a NaN matching any NaN; the difference over the elements finite in
+    both."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if (got.dtype, got.shape, got.stride()) != (
+            expected.dtype, expected.shape, expected.stride()):
+        return False, float("inf")
+    nan = got.isnan()
+    equal = (torch.equal(nan, expected.isnan())
+             and bool(((got.view(ints[got.dtype])
+                        == expected.view(ints[got.dtype])) | nan).all()))
+    finite = got.isfinite() & expected.isfinite()
+    diff = (got.float() - expected.float()).abs()[finite]
+    return equal, float(diff.max()) if diff.numel() else 0.0
+
+
+def with_specials(t, gen, count=64):
+    """``t`` with NaN, +inf, -inf and -0 at ``count`` seeded places of its
+    memory and at its last 8 elements (the grid-stride loop's tail), in
+    place; returns it."""
+    import torch
+
+    flat = t.as_strided((t.numel(),), (1,))
+    places = torch.cat([
+        torch.randint(t.numel(), (count,), generator=gen, device=t.device),
+        torch.arange(max(t.numel() - 8, 0), t.numel(), device=t.device)])
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                             -0.0], dtype=t.dtype, device=t.device)
+    flat[places] = specials[torch.arange(places.numel(),
+                                         device=t.device) % 4]
+    return t
+
+
+def epilogue_timing(calls, card, reps=10):
+    """The recorded epilogues ``calls`` of one batch, rebuilt on seeded
+    tensors of their shapes, strides and dtypes, with NaN, +-inf and -0
+    among each output's and residual's values (:func:`with_specials`).
+    First every case's kernel result, out of place and in place on a
+    clone, equal bit for bit to the plain version's (raises otherwise).
+    Then each way in one CUDA graph, all three reading the same inputs:
+    the kernel out of place, the plain version, and the eager chain the
+    models ran before (``x * scale + bias``, the activation, the residual
+    add, each op in the dtype). Device ms a replay by CUDA events over
+    ``reps`` replays (no profiler: it stays attached to the process and
+    loses later phases' records); the byte bound: every output read and
+    written once and every residual read once at PEAK_BYTES; and the
+    largest call alone, timed and bounded. Returns the fields."""
+    import torch
+
+    from terran_tpu_torch.ops import conv_epilogue as ce
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+
+    def seeded(shape, stride, dtype, scale=1.0):
+        t = torch.empty_strided(shape, stride, dtype=torch.float32,
+                                device=dev)
+        return (t.normal_(generator=gen) * scale).to(dtype)
+
+    def vector(c, dtype, lo, hi):
+        return (torch.rand(c, generator=gen, device=dev) * (hi - lo)
+                + lo).to(dtype)
+
+    cases, nbytes = [], 0
+    for shape, stride, dtype, scale, bias, relu, alpha, res in calls:
+        c = shape[1]
+        x = with_specials(seeded(shape, stride, dtype), gen)
+        cases.append((x, {
+            "bias": vector(c, dtype, -0.1, 0.1) if bias else None,
+            "scale": vector(c, dtype, 0.5, 1.0) if scale else None,
+            "relu": relu,
+            "alpha": vector(c, dtype, 0.0, 0.3) if alpha else None,
+            "residual": with_specials(seeded(shape, stride, dtype, 0.01),
+                                      gen) if res else None,
+        }))
+        nbytes += x.numel() * x.element_size() * (3 if res else 2)
+
+    exact, max_abs_err = True, 0.0
+    for i, (x, kw) in enumerate(cases):
+        want = ce.conv_epilogue_plain(x, **kw)
+        for inplace in (False, True):
+            got = ce.conv_epilogue_kernel(x.clone() if inplace else x,
+                                          inplace=inplace, **kw)
+            equal, err = same_bits(got, want)
+            exact, max_abs_err = exact and equal, max(max_abs_err, err)
+            if not equal:
+                raise AssertionError(
+                    f"conv epilogue call {i} ({tuple(x.shape)}, "
+                    f"{x.stride()}, {x.dtype}, {ce.mode(**kw)}, "
+                    f"{'in place' if inplace else 'out of place'}): the "
+                    f"kernel differs from the plain version (largest "
+                    f"difference {err})")
+        del want, got
+
+    def eager_chain(x, bias, scale, relu, alpha, residual):
+        def ch(v):
+            return v.reshape(1, -1, 1, 1)
+
+        if scale is not None:
+            x = x * ch(scale)
+        if bias is not None:
+            x = x + ch(bias)
+        if relu:
+            x = torch.relu(x)
+        elif alpha is not None:
+            x = torch.where(x >= 0, x, x * ch(alpha))
+        return x if residual is None else x + residual
+
+    ways = {
+        "kernel": lambda: [ce.conv_epilogue_kernel(x, **kw)
+                           for x, kw in cases],
+        "plain": lambda: [ce.conv_epilogue_plain(x, **kw)
+                          for x, kw in cases],
+        "eager_chain": lambda: [eager_chain(x, **kw) for x, kw in cases],
+    }
+    ms = {}
+    for name, fn in ways.items():
+        graph = captured(fn)
+        ms[name] = time_ms(graph.replay, iters=reps, warm=2)
+        del graph
+        torch.cuda.synchronize()
+    bound_ms = 1e3 * nbytes / PEAK_BYTES
+    big_x, big_kw = max(cases, key=lambda case: case[0].numel()
+                        * (3 if case[1]["residual"] is not None else 2))
+    big_bytes = big_x.numel() * big_x.element_size() * (
+        3 if big_kw["residual"] is not None else 2)
+    graph = captured(lambda: ce.conv_epilogue_kernel(big_x, **big_kw))
+    big_ms = time_ms(graph.replay)
+    del graph
+    big_bound = 1e3 * big_bytes / PEAK_BYTES
+    fields = {
+        "launches": len(cases), "exact": exact, "max_abs_err": max_abs_err,
+        "bytes": nbytes, "bound_ms": bound_ms,
+        "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+        "eager_chain_ms": ms["eager_chain"],
+        "bound_share_pct": 100 * bound_ms / ms["kernel"],
+        "largest": {"shape": list(big_x.shape), "dtype": str(big_x.dtype),
+                    "mode": ce.mode(**big_kw),
+                    "ms": big_ms, "bound_ms": big_bound,
+                    "bound_share_pct": 100 * big_bound / big_ms},
+        "card": card,
+    }
+    del cases
+    torch.cuda.empty_cache()
+    return fields
+
+
+def conv_epilogue_phase(params, batches, card):
+    """The conv epilogue on the main path, bf16: one eager
+    ``process_batch`` of a fresh pipeline at bench.py's configuration
+    (RetinaFace, FaceResNet100, OpenPose, before any warmup) launches
+    conv_epilogue exactly once for each floating-point conv and standalone
+    affine of each model call; then those launches rebuilt, checked bit
+    for bit against the plain version and timed against their byte bound
+    (:func:`epilogue_timing`). Returns the fields."""
+    import torch
+
+    from terran_tpu_torch.pipeline import PerceptionPipeline
+
+    pipe = PerceptionPipeline(**pipeline_kwargs(params))
+    pipe.process_batch(batches[0])  # cuDNN's and the kernels' first use
+    per_call = {type(m).__name__: epilogue_convs(m)
+                for m in (pipe.det_model, pipe.rec_model, pipe.pose_model)}
+    launched, expected = counted_epilogues(
+        pipe, lambda: pipe.process_batch(batches[1]))
+    if sum(launched.values()) != expected:
+        raise AssertionError(f"conv epilogue: {launched} launches over one "
+                             f"eager batch, expected {expected}, one a conv "
+                             "and standalone affine of each model call")
+    calls = recorded_epilogues(lambda: pipe.process_batch(batches[1]))
+    del pipe
+    torch.cuda.synchronize()
+    timing = epilogue_timing(calls, card)
+    log(f"conv epilogue ({card}): one eager pipeline batch launched it "
+        f"{sum(launched.values())} times (expected {expected}; a call of "
+        f"each model: {per_call}), by mode {launched}; "
+        f"those launches rebuilt with NaN, +-inf and -0: kernel equal to the "
+        f"plain version bit for bit {timing['exact']} (largest difference "
+        f"{timing['max_abs_err']}), replayed in one graph: kernel "
+        f"{timing['kernel_ms']:.4f} device ms a batch, bound "
+        f"{timing['bound_ms']:.4f} ms "
+        f"({timing['bytes'] / 1e9:.3f} GB at 3.35 TB/s, "
+        f"{timing['bound_share_pct']:.1f}% of it), plain "
+        f"{timing['plain_ms']:.4f} ms, the eager chain "
+        f"{timing['eager_chain_ms']:.4f} ms; largest call "
+        f"{timing['largest']}")
+    return {"launches": launched, "expected": expected,
+            "per_model_call": per_call, **timing}
 
 
 def check_pipeline_result(out, n, config):
@@ -3409,6 +3717,7 @@ def main():
 
     from terran_tpu_torch.face.detection import RetinaFaceDetector
     from terran_tpu_torch.models import quant
+    from terran_tpu_torch.ops import conv_epilogue as ce
     from terran_tpu_torch.ops import fused_peaks as fp
     from terran_tpu_torch.ops import nms
     from terran_tpu_torch.pose import Estimation
@@ -3434,16 +3743,18 @@ def main():
 
     # 2. Build, one nvcc per source, all started together.
     start = time.perf_counter()
-    sources = ("fused_peaks.cu", "nms.cu", "quant_conv.cu")
+    sources = ("fused_peaks.cu", "nms.cu", "quant_conv.cu",
+               "conv_epilogue.cu")
     cuda_build.load_libraries(*sources)
     fp._library()
     nms._library()
     quant._library()
+    ce._library()
     nvcc_s = ", ".join(f"{name} {cuda_build.build_seconds.get(name, 0.0):.2f} s"
                        for name in sources)
     log(f"build: fused_peaks.cu (scan + merge kernels), nms.cu (mask + "
-        f"sweep kernels) and quant_conv.cu (absmax, quantize_im2col, "
-        f"dequant_epilogue) in {time.perf_counter() - start:.2f} s (nvcc "
+        f"sweep kernels), quant_conv.cu (absmax, quantize_im2col, "
+        f"dequant_epilogue) and conv_epilogue.cu in {time.perf_counter() - start:.2f} s (nvcc "
         f"{nvcc_s}; 0 = cached)")
     native_s = native_phase()
 
@@ -3644,6 +3955,9 @@ def main():
     # right after the native one.
     # The pipeline's CUDA graphs against its eager launches.
     graphs = graphs_phase(pipe_params, card)
+    # The conv epilogue kernel on an eager batch: one launch a conv and
+    # standalone affine, and its time against its byte bound.
+    epilogue = conv_epilogue_phase(pipe_params, batches, card)
     pipe_int8 = pipeline_int8_phase(pipe_params, batches, card, pipe)
     # BODY_25 on the pose path: its pipeline, eager then replayed, and the
     # peak kernel on its 25-part view.
@@ -3979,7 +4293,16 @@ def main():
         "traced_batches": observability["traced_batches"],
         "library_ms": None,
         "card": card,
-    }, int8_kernels_entry(int8_convs, int8_launches, pipe_int8, card)]}))
+    }, int8_kernels_entry(int8_convs, int8_launches, pipe_int8, card), {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "terran_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None,
+        "pipeline": epilogue,
+        "body25": body25_run["conv_epilogue"],
+        "library_ms": None,
+        "card": card,
+    }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,7 @@ Dense kernel.
 import torch
 from torch import nn
 
-from terran_tpu_torch.models.layers import Affine, ConvAffine, prelu
+from terran_tpu_torch.models.layers import Affine, ConvAffine
 from terran_tpu_torch.models.quant import (
     QuantConv2d, keep_float64_copies, quantize_state_dict,
 )
@@ -31,7 +31,9 @@ EMBEDDING_DIM = 512
 
 
 class Unit(nn.Module):
-    """Pre-activation residual unit (arcface/model.py:4-35)."""
+    """Pre-activation residual unit (arcface/model.py:4-35): ``pre`` one
+    pass, ``conv1``'s epilogue with the unit's PReLU, ``conv2``'s with the
+    shortcut (or ``x``) added."""
 
     def __init__(self, in_channels, features, stride=1, has_shortcut=False):
         super().__init__()
@@ -45,9 +47,9 @@ class Unit(nn.Module):
         )
 
     def forward(self, x):
-        body = prelu(self.conv1(self.pre(x)), self.prelu)
-        body = self.conv2(body)
-        return body + (self.shortcut(x) if self.shortcut is not None else x)
+        body = self.conv1(self.pre(x), alpha=self.prelu)
+        shortcut = self.shortcut(x) if self.shortcut is not None else x
+        return self.conv2(body, residual=shortcut)
 
 
 class FaceResNet100(nn.Module):
@@ -86,7 +88,7 @@ class FaceResNet100(nn.Module):
         x = ((x.to(torch.float32) - PREPROC_MEAN) * PREPROC_STD).to(
             self.compute_dtype)
         x = x.permute(0, 3, 1, 2)
-        x = prelu(self.initial(x), self.initial_prelu)
+        x = self.initial(x, alpha=self.initial_prelu)
         for stage_idx, num_units in enumerate(UNITS_PER_STAGE):
             for unit_idx in range(num_units):
                 x = getattr(self, f"stage{stage_idx}_unit{unit_idx}")(x)

@@ -37,7 +37,7 @@ them from the weights).
 import torch
 from torch import nn
 
-from terran_tpu_torch.models.layers import max_pool_2x2
+from terran_tpu_torch.models.layers import biased_conv, max_pool_2x2
 
 HEAT_CHANNELS = 26  # 25 parts and the background
 PAF_CHANNELS = 52
@@ -123,11 +123,12 @@ class Body25Model(nn.Module):
         return self.conv1_1.weight.dtype
 
     def _conv(self, name, x):
-        x = getattr(self, name)(x)
+        """The conv ``name`` and its bias and activation in one epilogue
+        (``layers.biased_conv``)."""
         act = self._acts[name]
-        if act == "relu":
-            return torch.relu(x)
-        return x if act is None else getattr(self, act)(x)
+        alpha = None if act in (None, "relu") else getattr(self, act).weight
+        return biased_conv(getattr(self, name), x, relu=act == "relu",
+                           alpha=alpha)
 
     def _stage(self, x, branch, s):
         for b in range(1, BLOCKS + 1):

@@ -1,8 +1,24 @@
-"""Shared building blocks for the inference models (NCHW inside)."""
+"""Shared building blocks for the inference models (NCHW inside).
+
+Every floating-point conv's bias or folded-BN affine, activation and
+residual add run as one pass, :func:`ops.conv_epilogue.conv_epilogue`: on
+the card one kernel in place on the conv's output, on the CPU its plain
+version."""
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from terran_tpu_torch.ops.conv_epilogue import conv_epilogue
+
+
+def biased_conv(conv, x, relu=False, alpha=None):
+    """``conv`` (an ``nn.Conv2d`` with a bias) of ``x`` without its bias,
+    then one epilogue: the bias, then a ReLU where ``relu``, or the PReLU
+    of slopes ``alpha``."""
+    return conv_epilogue(conv._conv_forward(x, conv.weight, None),
+                         bias=conv.bias, relu=relu, alpha=alpha,
+                         inplace=True)
 
 
 class ConvBias(nn.Conv2d):
@@ -18,23 +34,12 @@ class ConvBias(nn.Conv2d):
         self.act = act
 
     def forward(self, x):
-        x = super().forward(x)
-        return torch.relu(x) if self.act == "relu" else x
-
-
-def _channels(v, x):
-    """A per-channel vector as an NCHW-broadcastable tensor of x's dtype."""
-    return v.to(x.dtype).reshape(1, -1, 1, 1)
-
-
-def prelu(x, alpha):
-    """``where(x >= 0, x, x * alpha)`` per channel, as the JAX models
-    write it."""
-    return torch.where(x >= 0, x, x * _channels(alpha, x))
+        return biased_conv(self, x, relu=self.act == "relu")
 
 
 class Affine(nn.Module):
-    """Folded-BN per-channel affine ``x * scale + bias``."""
+    """Folded-BN per-channel affine ``x * scale + bias``, one pass into a
+    new tensor."""
 
     def __init__(self, features):
         super().__init__()
@@ -42,37 +47,35 @@ class Affine(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return x * _channels(self.scale, x) + _channels(self.bias, x)
+        return conv_epilogue(x, bias=self.bias, scale=self.scale)
 
 
 class ConvAffine(nn.Module):
     """Conv (no bias) + folded-BN affine + optional activation: torch's
     ``Conv2d(bias=False) -> BatchNorm2d -> act`` at inference time, with
-    the BN kept as a separate ``x * scale + bias`` in the compute dtype
-    like ``terran_tpu/models/layers.py::ConvAffine``. ``groups`` makes the
-    conv grouped (depthwise when it equals the channel count)."""
+    the BN kept as a separate ``x * scale + bias`` like
+    ``terran_tpu/models/layers.py::ConvAffine``. ``groups`` makes the
+    conv grouped (depthwise when it equals the channel count). A PReLU's
+    slopes belong to the caller, which passes them to ``forward``."""
 
     def __init__(self, in_channels, features, kernel=3, stride=1, padding=0,
                  groups=1, act="relu"):
         super().__init__()
-        if act not in ("none", "relu", "prelu"):
+        if act not in ("none", "relu"):
             raise ValueError(f"unknown activation {act!r}")
         self.conv = nn.Conv2d(in_channels, features, kernel, stride=stride,
                               padding=padding, groups=groups, bias=False)
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
-        if act == "prelu":
-            self.prelu = nn.Parameter(torch.full((features,), 0.25))
         self.act = act
 
-    def forward(self, x):
-        x = self.conv(x)
-        x = x * _channels(self.scale, x) + _channels(self.bias, x)
-        if self.act == "relu":
-            return torch.relu(x)
-        if self.act == "prelu":
-            return prelu(x, self.prelu)
-        return x
+    def forward(self, x, alpha=None, residual=None):
+        """The conv of ``x``, then one epilogue: the affine, the module's
+        ReLU or the PReLU of the caller's slopes ``alpha``, then the add of
+        ``residual`` where given."""
+        return conv_epilogue(self.conv(x), bias=self.bias, scale=self.scale,
+                             relu=self.act == "relu", alpha=alpha,
+                             residual=residual, inplace=True)
 
 
 def upsample2x_nearest(x, out_h, out_w):

@@ -18,7 +18,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from terran_tpu_torch.models.layers import ConvAffine, upsample2x_nearest
+from terran_tpu_torch.models.layers import (
+    ConvAffine, biased_conv, upsample2x_nearest,
+)
 from terran_tpu_torch.ops.nms import nms_fixed
 
 # Anchor configuration of the `mnet` backbone (retinaface/wrapper.py:100-117).
@@ -136,7 +138,8 @@ class Heads(nn.Module):
         outs = {}
         for stride, feat in zip((8, 16, 32), feats):
             outs[stride] = tuple(
-                getattr(self, f"{head}_s{stride}")(feat).permute(0, 2, 3, 1)
+                biased_conv(getattr(self, f"{head}_s{stride}"),
+                            feat).permute(0, 2, 3, 1)
                 for head in ("cls", "bbox", "landmark")
             )
         return outs

@@ -793,15 +793,16 @@ class PerceptionPipeline:
         device programs run."""
         if self.device.type == "cuda":
             from terran_tpu_torch.models import quant
-            from terran_tpu_torch.ops import fused_peaks, nms
+            from terran_tpu_torch.ops import conv_epilogue, fused_peaks, nms
             from terran_tpu_torch.utils.cuda_build import load_libraries
 
             int8 = "int8" in (self.embed_precision, self.pose_precision)
             # nvcc in parallel
-            load_libraries("fused_peaks.cu", "nms.cu",
+            load_libraries("fused_peaks.cu", "nms.cu", "conv_epilogue.cu",
                            *(("quant_conv.cu",) if int8 else ()))
             fused_peaks._library()
             nms._library()
+            conv_epilogue._library()
             if int8:
                 quant._library()
 
